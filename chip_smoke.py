@@ -9,15 +9,24 @@ one line, and any failure exits non-zero without the final ``ok`` line:
 1. environment: the card (``nvidia-smi``), torch and CUDA versions, nvcc;
 2. build: compiles the hand-written kernels from ``qinfer_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes (2²² particles; K2 also at n = 1, the shape the
-   loop gives it), with the tolerance stated;
+   the main paths' shapes (K1-K3 at 2²² particles, K2 also at n = 1, the
+   shape the loop gives it; the Jacobi kernels K4-K6 on embedded
+   Ginibre/BCSZ states pushed out of the PSD cone as Liu-West proposals
+   are, and on random symmetric matrices, also against host float64
+   ``numpy.linalg.eigh`` on a subsample), with the tolerance stated;
 4. engine: 20 reweight steps on the card against the same steps run by the
    plain path on the CPU, and ``perf_test`` at 4096 particles;
-5. main path: the benchmark protocol (2²² particles, 256 adaptive steps,
-   ESS check every step, Liu-West resampling), with every kernel launch
-   counter reset to 0 before and read after each run;
-6. timing: each kernel's device time (torch.profiler) against its plain
-   version's, after the main path so the profiler cannot slow the loop.
+5. main paths, each with every kernel launch counter reset to 0 before and
+   read after each run: the precession benchmark protocol (2²²
+   particles, 256 adaptive steps, ESS check every step, Liu-West
+   resampling); two-qubit process tomography (255 parameters, 50 000
+   particles, 1000 steps: K5 at every strict projection, K3 at every
+   resample, K6 in the BCSZ prior draw); diffusive two-qubit state
+   tomography (100 000 particles, 200 steps: K4 at every step that left
+   the cone). Each tomography run must beat the prior mean's fidelity;
+6. timing: each kernel's time against its plain version's, after the
+   main paths so the profiler cannot slow the loops: K1-K3 by profiler
+   device time, K4-K6 by CUDA events.
 
 Then it prints the kernels' JSON line, the card line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -31,6 +40,10 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_MAIN = 1 << 22
+#: the tomography paths: (mode, particles, steps)
+TOMO_PATHS = (("process", 50_000, 1000), ("diffusive", 100_000, 200))
+#: rows of each Jacobi batch held against host float64
+N_F64 = 2000
 
 
 class SmokeFailure(Exception):
@@ -66,13 +79,35 @@ def device_ms(fn, reps=20):
     return us / 1e3 / reps
 
 
-def time_pair(kernel_fn, plain_fn):
-    """Kernel and plain device times in turns (plain, kernel, kernel,
-    plain); each the mean of its two readings."""
-    p1 = device_ms(plain_fn)
-    k1 = device_ms(kernel_fn)
-    k2 = device_ms(kernel_fn)
-    p2 = device_ms(plain_fn)
+def event_ms(fn, reps=5):
+    """Time of one ``fn()`` in ms between two CUDA events around ``reps``
+    back-to-back calls. For the Jacobi kernels and their plain versions:
+    the plain ones launch ~10⁴ kernels a call, and after some 30 such
+    profiler sessions in one process the profiler stopped reporting
+    device time (two calls on the card). A kernel's single launch or the
+    plain version's long device queue keeps the card busy between the
+    events, so this is device time up to the first launch's latency."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_pair(kernel_fn, plain_fn, timer=device_ms):
+    """Kernel and plain times in turns (plain, kernel, kernel, plain); each
+    the mean of its two readings."""
+    p1 = timer(plain_fn)
+    k1 = timer(kernel_fn)
+    k2 = timer(kernel_fn)
+    p2 = timer(plain_fn)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -183,19 +218,183 @@ def check_kernels(torch, dev):
     return timers, extra
 
 
+def _pushed_states(torch, dev, prior, model, n, g):
+    """Embedded states of ``n`` prior particles after one Liu-West-style
+    move (a = 0.98 shrinkage towards the mean plus h·L·z with the
+    ensemble's covariance): the inputs a strict projection meets."""
+    x = prior.sample(g, n)
+    mu = x.mean(0)
+    xc = x - mu
+    cov = xc.T @ xc / n + 1e-10 * torch.eye(x.shape[1], device=dev)
+    L = torch.linalg.cholesky(cov)
+    z = torch.randn(x.shape, generator=g, device=dev)
+    h = math.sqrt(1.0 - 0.98 ** 2)
+    return model._embedded_states(0.98 * x + 0.02 * mu + h * z @ L.T)
+
+
+def _random_symmetric(torch, dev, n, d, g):
+    """(B + Bᵀ)/2 with B standard normal: the inputs the JAX package's own
+    TPU accuracy figures were measured on."""
+    b = torch.randn((n, d, d), generator=g, device=dev)
+    return ((b + b.transpose(1, 2)) / 2).contiguous()
+
+
+def _f64_projection(np, a):
+    """Host float64 projection of ``a`` (n, d, d) to trace 2, and the rows
+    with positive mass (a clipped trace above 1e-3)."""
+    ev, V = np.linalg.eigh(a.astype(np.float64))
+    ev = np.clip(ev, 0.0, None)
+    mass = ev.sum(-1)
+    ev = 2.0 * ev / np.clip(mass[:, None], 1e-35, None)
+    return np.einsum("nab,nb,ncb->nac", V, ev, V), mass > 1e-3
+
+
+def check_jacobi_kernels(torch, dev):
+    """Phase 3, K4-K6: each kernel against its plain version on the card at
+    the main paths' shapes, and against host float64 on ``N_F64`` rows.
+
+    Inputs: embedded states pushed out of the cone (2-qubit Ginibre at
+    d = 8, 3-qubit Ginibre at d = 16, 2-qubit BCSZ Choi states at d = 32;
+    ``EMBEDDED_SWEEPS`` sweeps, as the models run them) and random
+    symmetric matrices (6 sweeps, the kernels' default).
+
+    Tolerances. Kernel against plain: 1e-6 absolute on projections (trace
+    2) and eigenvalues, 1e-5 on eigenvectors; the kernel rounds each step
+    as the plain version's separate ops do. Against float64: the JAX
+    package's TPU accuracy figures (docs/PERF_NOTES.md): projection 2.3e-6
+    at d = 8, 2.5e-5 at d = 16, 2.8e-5 at d = 32; eigenvalues 1.1e-5 at
+    d = 8 and 2.5e-5 at d = 16. Also: exact symmetry, trace 2 ± 1e-4 on
+    rows with positive mass, and for K6 reconstruction ≤ 2e-5·max|a| and
+    ‖VᵀV − I‖∞ ≤ 1e-5."""
+    import numpy as np
+    from qinfer_tpu_torch import tomography as tomo
+    from qinfer_tpu_torch.ops import jacobi as jac
+    from qinfer_tpu_torch.tomography.bases import (
+        EMBEDDED_SWEEPS, batched_jacobi_eigh_small)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(4321)
+    inputs = {}
+    for d, nq, n, prior_of in ((8, 2, 100_000, tomo.GinibreDistribution),
+                               (16, 3, 50_000, tomo.GinibreDistribution),
+                               (32, 4, 50_000, tomo.BCSZChoiDistribution)):
+        basis = tomo.pauli_basis(nq)
+        states = _pushed_states(torch, dev, prior_of(basis),
+                                tomo.TomographyModel(basis), n, g)
+        inputs[d] = ((states, EMBEDDED_SWEEPS),
+                     (_random_symmetric(torch, dev, n, d, g), 6))
+
+    timers, extra = [], []
+    proj_tol = {8: 2.3e-6, 16: 2.5e-5, 32: 2.8e-5}
+    # (kernel, its plain version, TPU wrapper line, shapes checked, the
+    # main path's shape: the diffusive path's d = 8, the process path's 32)
+    for name, fn, plain, line, dims, timed in (
+            ("jacobi_project_lanes", jac.jacobi_project_lanes,
+             jac.jacobi_project_lanes_plain, 309, (8, 16), 8),
+            ("jacobi_project_lanes_looped", jac.jacobi_project_lanes_looped,
+             jac.jacobi_project_lanes_looped_plain, 230, (32,), 32)):
+        err = 0.0
+        for d in dims:
+            for a, sweeps in inputs[d]:
+                got = fn(a, sweeps=sweeps)
+                want = plain(a, sweeps=sweeps)
+                torch.cuda.synchronize()
+                e = float((got - want).abs().max())
+                require(e <= 1e-6, f"{name} d={d} differs from plain by {e}")
+                require(torch.equal(got, got.transpose(1, 2)),
+                        f"{name} d={d}: output not exactly symmetric")
+                sub = got[:N_F64].cpu().numpy()
+                ref, mass = _f64_projection(np, a[:N_F64].cpu().numpy())
+                tr = np.trace(sub, axis1=1, axis2=2)[mass]
+                require(float(np.abs(tr - 2.0).max()) <= 1e-4,
+                        f"{name} d={d}: trace off 2")
+                e64 = float(np.abs(sub - ref).max())
+                require(e64 <= proj_tol[d], f"{name} d={d} sweeps={sweeps}:"
+                        f" {e64} from float64 (tolerance {proj_tol[d]})")
+                say("kernels", f"{name} {tuple(a.shape)} sweeps={sweeps}: "
+                               f"|kernel - plain| {e:.3g}, |kernel - f64| "
+                               f"{e64:.3g}")
+                err = max(err, e)
+        a, sweeps = inputs[timed][0]
+        timers.append((
+            dict(name=name, route="cuda",
+                 source="qinfer_tpu_torch/csrc/jacobi.cu",
+                 replaces=f"qinfer_tpu/ops/jacobi.py:{line}",
+                 max_abs_err=err),
+            lambda fn=fn, a=a, s=sweeps: fn(a, sweeps=s),
+            lambda plain=plain, a=a, s=sweeps: plain(a, sweeps=s)))
+    a16, s16 = inputs[16][0]
+    extra.append(("jacobi_project_lanes (50000, 16, 16)",
+                  lambda: jac.jacobi_project_lanes(a16, sweeps=s16),
+                  lambda: jac.jacobi_project_lanes_plain(a16, sweeps=s16)))
+
+    ev_tol = {8: 1.1e-5, 16: 2.5e-5}
+    err = 0.0
+    for d in (8, 16):
+        for a, sweeps in inputs[d]:
+            before = jac.jacobi_eigh_lanes.launches
+            ev, V = batched_jacobi_eigh_small(a, sweeps=sweeps)
+            ev_p, V_p = jac.jacobi_eigh_lanes_plain(a, sweeps=sweeps)
+            torch.cuda.synchronize()
+            require(jac.jacobi_eigh_lanes.launches == before + 1,
+                    "batched_jacobi_eigh_small did not launch K6")
+            e = float((ev - ev_p).abs().max())
+            require(e <= 1e-6, f"K6 d={d} eigenvalues differ from plain "
+                               f"by {e}")
+            ev_err = float((V - V_p).abs().max())
+            require(ev_err <= 1e-5, f"K6 d={d} eigenvectors differ from "
+                                    f"plain by {ev_err}")
+            scale = float(a.abs().max())
+            recon = float(((V * ev[:, None, :]) @ V.transpose(1, 2) - a)
+                          .abs().max())
+            require(recon <= 2e-5 * scale, f"K6 d={d}: reconstruction off "
+                                           f"by {recon}")
+            eye = torch.eye(d, device=dev)
+            orth = float((V.transpose(1, 2) @ V - eye).abs().max())
+            require(orth <= 1e-5, f"K6 d={d}: |VᵀV - I| = {orth}")
+            want = np.linalg.eigvalsh(a[:N_F64].cpu().double().numpy())
+            e64 = float(np.abs(np.sort(ev[:N_F64].cpu().numpy(), -1)
+                               - want).max())
+            require(e64 <= ev_tol[d], f"K6 d={d} sweeps={sweeps}: "
+                    f"eigenvalues {e64} from float64 (tolerance "
+                    f"{ev_tol[d]})")
+            say("kernels", f"jacobi_eigh_lanes {tuple(a.shape)} sweeps="
+                           f"{sweeps}: |kernel - plain| {e:.3g}, "
+                           f"reconstruction {recon:.3g}, |VᵀV - I| "
+                           f"{orth:.3g}, |ev - f64| {e64:.3g}")
+            err = max(err, e)
+    # K6's main-path shape: E(S) of the BCSZ prior draw, (50 000, 8, 8)
+    a8 = inputs[8][0][0][:50_000]
+    timers.append((
+        dict(name="jacobi_eigh_lanes", route="cuda",
+             source="qinfer_tpu_torch/csrc/jacobi.cu",
+             replaces="qinfer_tpu/ops/jacobi.py:269", max_abs_err=err),
+        lambda: jac.jacobi_eigh_lanes(a8, sweeps=EMBEDDED_SWEEPS),
+        lambda: jac.jacobi_eigh_lanes_plain(a8, sweeps=EMBEDDED_SWEEPS)))
+    return timers, extra
+
+
 def time_kernels(timers, extra):
-    """Phase 6: device time of each kernel and of its plain version at the
-    main path's shapes, then at the shapes in ``extra`` (printed only)."""
+    """Phase 6: time of each kernel and of its plain version at the main
+    paths' shapes, then at the shapes in ``extra`` (printed only): K1-K3 by
+    profiler device time, first; then the Jacobi kernels K4-K6 by CUDA
+    events (:func:`event_ms`)."""
     results = []
-    for result, kernel_fn, plain_fn in timers:
-        result["ms"], result["plain_ms"] = time_pair(kernel_fn, plain_fn)
-        say("timing", f"{result['name']}: {result['ms']:.4f} ms device time "
-                      f"(plain {result['plain_ms']:.4f} ms)")
-        results.append(result)
-    for label, kernel_fn, plain_fn in extra:
-        ms, plain_ms = time_pair(kernel_fn, plain_fn)
-        say("timing", f"{label}: {ms:.4f} ms device time "
-                      f"(plain {plain_ms:.4f} ms)")
+    for jacobi in (False, True):
+        timer, how = (event_ms, "CUDA events") if jacobi else (
+            device_ms, "device time")
+        for result, kernel_fn, plain_fn in timers:
+            if result["name"].startswith("jacobi") == jacobi:
+                result["ms"], result["plain_ms"] = time_pair(
+                    kernel_fn, plain_fn, timer)
+                say("timing", f"{result['name']}: {result['ms']:.4f} ms "
+                              f"{how} (plain {result['plain_ms']:.4f} ms)")
+                results.append(result)
+        for label, kernel_fn, plain_fn in extra:
+            if label.startswith("jacobi") == jacobi:
+                ms, plain_ms = time_pair(kernel_fn, plain_fn, timer)
+                say("timing", f"{label}: {ms:.4f} ms {how} (plain "
+                              f"{plain_ms:.4f} ms)")
     return results
 
 
@@ -246,16 +445,25 @@ def check_engine(torch, dev):
     say("engine", f"perf_test n={n}, 100 steps, 3 seeds: |est - 0.7| < 0.05")
 
 
-def run_main_path(torch, dev):
-    """Phase 5: the benchmark protocol through the kernels, counted."""
-    from qinfer_tpu_torch import bench
+def counted_wrappers():
+    """Every kernel wrapper, by kernel name."""
+    from qinfer_tpu_torch.ops import jacobi as jac
     from qinfer_tpu_torch.ops import precession as prec
     from qinfer_tpu_torch.ops import streaming_resample as sr
 
-    counted = {"fused_precession_update": prec.fused_precession_update,
-               "precession_pr0": prec.precession_pr0,
-               "streaming_resample_locations":
-                   sr.streaming_resample_locations}
+    return {"fused_precession_update": prec.fused_precession_update,
+            "precession_pr0": prec.precession_pr0,
+            "streaming_resample_locations": sr.streaming_resample_locations,
+            "jacobi_project_lanes": jac.jacobi_project_lanes,
+            "jacobi_project_lanes_looped": jac.jacobi_project_lanes_looped,
+            "jacobi_eigh_lanes": jac.jacobi_eigh_lanes}
+
+
+def run_main_path(torch, dev):
+    """Phase 5: the benchmark protocol through the kernels, counted."""
+    from qinfer_tpu_torch import bench
+
+    counted = counted_wrappers()
     bench.timed_run(N_MAIN, bench.N_STEPS, 0, dev)  # warm-up
     walls, launches = [], {}
     for rep in range(bench.N_REPEATS):
@@ -279,11 +487,74 @@ def run_main_path(torch, dev):
                 == updater.resample_count > 0,
                 f"K3 launched {launches['streaming_resample_locations']} "
                 f"times for {updater.resample_count} resamples")
+        require(all(launches[k] == 0 for k in launches
+                    if k.startswith("jacobi")),
+                f"a Jacobi kernel ran on the precession path: {launches}")
         say("main", f"run {rep}: {wall:.4f} s, est {est:.6f}, "
                     f"{updater.resample_count} resamples, launches {launches}")
     best = min(walls)
     rate = N_MAIN * bench.N_STEPS / best
     return launches, best, rate
+
+
+def run_tomography_path(torch, dev, mode, n, steps, card):
+    """Phase 5: a tomography path of ``tomography_bench`` (one warm-up, three
+    timed repeats), counted. The model's ``projection_count`` (canonicalize
+    calls that found a state outside the strict cone) must equal the
+    launches of the path's projection kernel, K5 for the process path, K4
+    for the diffusive one, and be at least 1; K3 must run once per
+    resample; the process path's BCSZ prior draw runs K6 once."""
+    from qinfer_tpu_torch import tomography_bench as tb
+
+    cfg = tb.make_config(mode, dev, process_qubits=2)
+    counted = counted_wrappers()
+    tb.timed_run(cfg, n, steps, 0, dev)  # warm-up
+    walls, launches = [], {}
+    projector = ("jacobi_project_lanes_looped" if mode == "process"
+                 else "jacobi_project_lanes")
+    for rep in range(tb.N_REPEATS):
+        for fn in counted.values():
+            fn.launches = 0
+        r = tb.timed_run(cfg, n, steps, rep + 1, dev)
+        launches = {name: fn.launches for name, fn in counted.items()}
+        walls.append(r["wall_s"])
+        st = r["state"]
+        require(bool(torch.isfinite(st.weights).all())
+                and bool(torch.isfinite(st.locations).all())
+                and bool(torch.isfinite(st.log_total_likelihood)),
+                f"NaN or inf in the state after the {mode} path")
+        require(st.locations.shape == (n, cfg.model.n_modelparams),
+                f"{mode} path: locations of shape {tuple(st.locations.shape)}")
+        require(r["fidelity"] > r["prior_fidelity"],
+                f"{mode} path: fidelity {r['fidelity']} not above the prior "
+                f"mean's {r['prior_fidelity']}")
+        require(r["projections"] >= 1, f"{mode} path: no projection ran")
+        require(launches[projector] == r["projections"],
+                f"{mode} path: {projector} launched {launches[projector]} "
+                f"times for {r['projections']} gated projections")
+        require(launches["streaming_resample_locations"]
+                == st.resample_count,
+                f"{mode} path: K3 launched "
+                f"{launches['streaming_resample_locations']} times for "
+                f"{st.resample_count} resamples")
+        others = {"fused_precession_update", "precession_pr0", projector,
+                  "streaming_resample_locations", "jacobi_eigh_lanes"}
+        require(all(launches[k] == 0 for k in launches if k not in others),
+                f"{mode} path launched another path's kernel: {launches}")
+        require(launches["jacobi_eigh_lanes"]
+                == (1 if mode == "process" else 0),
+                f"{mode} path: K6 launched {launches['jacobi_eigh_lanes']} "
+                f"times")
+        say("main", f"{mode} run {rep}: {r['wall_s']:.4f} s, fidelity "
+                    f"{r['fidelity']:.6f} (prior mean "
+                    f"{r['prior_fidelity']:.6f}), {st.resample_count} "
+                    f"resamples, {r['projections']} projections, launches "
+                    f"{launches}")
+    best = min(walls)
+    rate = n * steps / best
+    say("main", f"{mode}: best of 3 runs: {best:.4f} s for {n} particles x "
+                f"{steps} steps = {rate:.6g} particle-updates/s on {card}")
+    return launches
 
 
 def main():
@@ -317,16 +588,25 @@ def main():
                  f"{time.perf_counter() - t0:.1f} s; ptxas: {regs}")
 
     timers, extra = check_kernels(torch, dev)
+    jac_timers, jac_extra = check_jacobi_kernels(torch, dev)
     check_engine(torch, dev)
     launches, best, rate = run_main_path(torch, dev)
     say("main", f"best of 3 runs: {best:.4f} s for "
                 f"{N_MAIN} particles x 256 steps = {rate:.6g} "
                 f"particle-updates/s on {card}")
-    results = time_kernels(timers, extra)
+    path_launches = {mode: run_tomography_path(torch, dev, mode, n, steps,
+                                               card)
+                     for mode, n, steps in TOMO_PATHS}
+    results = time_kernels(timers + jac_timers, extra + jac_extra)
     require("jax" not in sys.modules, "JAX was imported")
 
+    # each kernel's count from the run of the path that carries it
+    path_of = {"jacobi_project_lanes": "diffusive",
+               "jacobi_project_lanes_looped": "process",
+               "jacobi_eigh_lanes": "process"}
     for r in results:
-        r["launches"] = launches[r["name"]]
+        path = path_of.get(r["name"])
+        r["launches"] = (path_launches[path] if path else launches)[r["name"]]
     print(json.dumps({"kernels": results}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,14 @@
 """qinfer_tpu_torch: the PyTorch + CUDA port of :mod:`qinfer_tpu`.
 
-A second package beside the JAX one, which stays the reference. This
-slice is the precession SMC main path: models, the uniform prior, the SMC
-updater with Liu-West resampling, the PGH heuristic, ``perf_test`` and
-the benchmark, with the three hot kernels hand-written in CUDA for Hopper
-(:mod:`qinfer_tpu_torch.ops`). Module names mirror the JAX package.
-Importing the package builds no kernel and imports no JAX.
+A second package beside the JAX one, which stays the reference. Two
+slices are ported: the precession SMC main path (models, the uniform
+prior, the SMC updater with Liu-West resampling, the PGH heuristic,
+``perf_test`` and the benchmark) and tomography
+(:mod:`qinfer_tpu_torch.tomography`: bases, priors, state, process and
+diffusive models, heuristics; ``tomography_bench``), with the hot kernels
+hand-written in CUDA for Hopper (:mod:`qinfer_tpu_torch.ops`). Module
+names mirror the JAX package. Importing the package builds no kernel and
+imports no JAX.
 """
 
 from .config import EPS
@@ -26,6 +29,7 @@ from .smc import SMCState, SMCUpdater
 from .heuristics import PGH, Heuristic
 from .perf_testing import perf_test
 from .ops.accelerated import AcceleratedPrecessionModel
+from . import tomography
 
 __all__ = [
     "EPS",
@@ -54,4 +58,5 @@ __all__ = [
     "PGH",
     "perf_test",
     "AcceleratedPrecessionModel",
+    "tomography",
 ]

@@ -10,6 +10,8 @@
   given device.
 * Every stochastic call takes an explicit :class:`torch.Generator`, whose
   device is the device the draw lands on.
+* A time-dependent model overrides ``update_timestep``, which the engine
+  then runs after every reweighting (``is_time_dependent``).
 """
 
 from __future__ import annotations
@@ -125,6 +127,22 @@ class Simulatable:
         """Draw outcomes for each (model, experiment) pair:
         ``(repeat, n_models, n_expparams)``, squeezed when ``repeat == 1``."""
         raise NotImplementedError
+
+    @property
+    def is_time_dependent(self):
+        """True when the model evolves its parameters between experiments
+        (the engine then runs :meth:`update_timestep` every step): whether
+        the class overrides :meth:`update_timestep`."""
+        return type(self).update_timestep is not Simulatable.update_timestep
+
+    def update_timestep(self, generator, modelparams, expparams):
+        """Evolve model parameters after an experiment:
+        ``(n_models, n_modelparams, n_expparams)``; the identity by
+        default."""
+        modelparams = atleast_2d(modelparams)
+        n_e = n_expparams(self.canonicalize_expparams(
+            expparams, modelparams.device))
+        return modelparams[:, :, None].expand(-1, -1, n_e)
 
     def _bump(self, name, k=1):
         setattr(self, name, getattr(self, name, 0) + k)

@@ -77,19 +77,18 @@ def timed_run(n_particles, n_steps, seed, device):
     return time.perf_counter() - t0, updater
 
 
-def profiled_run(n_particles, n_steps, seed, device, path):
-    """One more run under :mod:`torch.profiler`. Writes the table of device
-    time by kernel to ``path`` and returns ``(wall_s, device_s)``: the
-    profiled wall time and the device time summed over all kernels and
+def profile_device_time(run, device, path):
+    """Call ``run()`` once under :mod:`torch.profiler`, write the table of
+    device time by kernel to ``path`` and return ``(wall_s, device_s)``:
+    the profiled wall time and the device time summed over all kernels and
     copies (the profiler slows the host, so the wall is an upper bound)."""
     from torch.profiler import ProfilerActivity, profile
 
-    updater = make_updater(n_particles, seed, device)
     torch.cuda.synchronize(device)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_loop(updater, n_steps, seed + 1000)
+        run()
         torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -99,8 +98,16 @@ def profiled_run(n_particles, n_steps, seed, device, path):
                    and not e.is_user_annotation) / 1e6
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     Path(path).write_text(events.table(sort_by="self_device_time_total",
-                                       row_limit=30))
+                                       row_limit=40))
     return wall, device_s
+
+
+def profiled_run(n_particles, n_steps, seed, device, path):
+    """One more run under :mod:`torch.profiler` (see
+    :func:`profile_device_time`)."""
+    updater = make_updater(n_particles, seed, device)
+    return profile_device_time(
+        lambda: run_loop(updater, n_steps, seed + 1000), device, path)
 
 
 def card_label():

@@ -5,7 +5,9 @@
 ``key`` is ignored, since the port draws from a :class:`torch.Generator`)
 and builds the port's :class:`~qinfer_tpu_torch.smc.SMCState` on a device;
 :func:`state_to_numpy` goes back. The tests use them so that both packages
-step from the same ensemble.
+step from the same ensemble. :func:`tomography_basis_from_numpy` builds the
+port's tomography basis from the same host arrays as a JAX basis (``data``,
+``dims``, ``labels``).
 """
 
 from __future__ import annotations
@@ -14,8 +16,10 @@ import numpy as np
 import torch
 
 from .smc import SMCState
+from .tomography.bases import TomographyBasis
 
-__all__ = ["state_from_numpy", "state_to_numpy"]
+__all__ = ["state_from_numpy", "state_to_numpy",
+           "tomography_basis_from_numpy"]
 
 #: fields that are tensors in the port, with their dtype
 _TENSOR_FIELDS = {
@@ -53,3 +57,11 @@ def state_to_numpy(state):
     out["just_resampled"] = np.bool_(state.just_resampled)
     out["zero_weight_count"] = np.int32(state.zero_weight_count)
     return out
+
+
+def tomography_basis_from_numpy(data, dims, labels=None):
+    """A :class:`~qinfer_tpu_torch.tomography.bases.TomographyBasis` from
+    its complex operators ``data`` (n_ops, d, d), subsystem ``dims`` and
+    ``labels``: e.g. ``np.asarray(jax_basis.data)``, ``jax_basis.dims``,
+    ``jax_basis.labels``."""
+    return TomographyBasis(np.asarray(data), dims, labels)

@@ -1,7 +1,8 @@
 """Build and load layer for the port's hand-written CUDA kernels.
 
 All sources under ``qinfer_tpu_torch/csrc/*.cu`` are compiled by ``nvcc``
-for Hopper (``sm_90a``) into ONE shared library with a plain C interface,
+for Hopper (``sm_90a``), one ``nvcc`` process per source, all started
+together, and linked into ONE shared library with a plain C interface,
 which is loaded with :mod:`ctypes`. The build happens at first use, from
 the sources in the checkout, into ``qinfer_tpu_torch/_build/`` (listed in
 ``.gitignore``); the library's file name carries a hash of the sources and
@@ -34,12 +35,15 @@ _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
 
-#: one build path for every kernel; no --use_fast_math (see precession.cu)
+#: one compile line for every kernel; no --use_fast_math and no flush to
+#: zero (see precession.cu and jacobi.cu)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _VP = ctypes.c_void_p
 _LL = ctypes.c_longlong
+_I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     "qk_fused_precession_update": (
         [_VP, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _LL, ctypes.c_int, _VP],
@@ -49,6 +53,8 @@ _SIGNATURES = {
     "qk_precession_pr0": ([_VP, _LL, _VP, _VP, _LL, _LL, _VP], ctypes.c_int),
     "qk_streaming_resample_locations": (
         [_VP, _VP, _VP, _LL, _LL, _VP], ctypes.c_int),
+    "qk_jacobi_project": ([_VP, _VP, _LL, _I, _I, _F, _F, _VP], ctypes.c_int),
+    "qk_jacobi_eigh": ([_VP, _VP, _VP, _LL, _I, _I, _VP], ctypes.c_int),
     "qk_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
@@ -93,15 +99,32 @@ def build():
     if lib.is_file():
         return lib, log.read_text() if log.is_file() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{s.stem}-{tag}.o" for s in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+            for s, o in zip(srcs, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
+    try:
+        for cmd, proc, text in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{text}")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                f"{proc.stdout}{proc.stderr}")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, lib)
-    text = proc.stdout + proc.stderr
+    text = "".join(logs)
     log.write_text(text)
     return lib, text
 

@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version: K1 :func:`fused_precession_update`, K2 :func:`precession_pr0`,
-K3 :func:`streaming_resample_locations`."""
+K3 :func:`streaming_resample_locations`, and the tomography path's Jacobi
+kernels K4 :func:`jacobi_project_lanes`, K5
+:func:`jacobi_project_lanes_looped` and K6 :func:`jacobi_eigh_lanes`."""
 
 from .precession import (
     fused_precession_update,
@@ -12,6 +14,14 @@ from .streaming_resample import (
     streaming_resample_locations,
     streaming_resample_locations_plain,
 )
+from .jacobi import (
+    jacobi_eigh_lanes,
+    jacobi_eigh_lanes_plain,
+    jacobi_project_lanes,
+    jacobi_project_lanes_looped,
+    jacobi_project_lanes_looped_plain,
+    jacobi_project_lanes_plain,
+)
 from .accelerated import AcceleratedPrecessionModel
 
 __all__ = [
@@ -21,5 +31,11 @@ __all__ = [
     "precession_pr0_plain",
     "streaming_resample_locations",
     "streaming_resample_locations_plain",
+    "jacobi_eigh_lanes",
+    "jacobi_eigh_lanes_plain",
+    "jacobi_project_lanes",
+    "jacobi_project_lanes_plain",
+    "jacobi_project_lanes_looped",
+    "jacobi_project_lanes_looped_plain",
     "AcceleratedPrecessionModel",
 ]

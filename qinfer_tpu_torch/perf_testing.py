@@ -35,8 +35,10 @@ def perf_test(model, n_particles, prior, n_exp, heuristic_class=PGH,
     Same protocol as the reference: draw the true parameters from
     ``true_prior`` (default: the inference prior) unless ``true_mps`` is
     given, then loop ``heuristic → true_model.simulate_experiment →
-    updater.update``, recording the Q-weighted quadratic loss of the
-    posterior mean, the wall time of the step and the resample count.
+    (a time-dependent true model's update_timestep) → updater.update``,
+    recording the Q-weighted quadratic loss of the posterior mean against
+    the current true parameters, the wall time of the step and the
+    resample count.
 
     :return: ``(performance, extra)``: a structured array of length
         ``n_exp`` with fields ``PERF_DTYPE``, and a dict with the
@@ -60,15 +62,18 @@ def perf_test(model, n_particles, prior, n_exp, heuristic_class=PGH,
     performance = np.zeros((n_exp,), dtype=PERF_DTYPE)
     ests = np.zeros((n_exp, model.n_modelparams))
     Q = model.Q.numpy()
-    true_np = true_mps[0].cpu().numpy()
+    time_dependent = bool(true_model.is_time_dependent)
 
     for idx in range(n_exp):
         t0 = time.perf_counter()
         eps = heuristic(idx)
         outcome = true_model.simulate_experiment(generator, true_mps, eps)
+        if time_dependent:
+            true_mps = true_model.update_timestep(
+                generator, true_mps, eps)[:, :, 0]
         updater.update(outcome, eps)
         est = updater.est_mean().cpu().numpy()
-        delta = est - true_np
+        delta = est - true_mps[0].cpu().numpy()
         performance[idx]["elapsed_time"] = time.perf_counter() - t0
         performance[idx]["loss"] = float(np.sum(Q * delta * delta))
         performance[idx]["resample_count"] = updater.resample_count

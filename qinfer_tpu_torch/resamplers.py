@@ -104,7 +104,7 @@ class LiuWestResampler(Resampler):
         """:return: ``(weights, locations, n_fallback)``, ``n_fallback`` a
         0-d int32 tensor counting slots that kept their ancestor."""
         w = particle_weights
-        x = particle_locations
+        x = particle_locations.contiguous()  # K3 reads whole rows
         n, d = x.shape
         dev = x.device
 

@@ -3,8 +3,9 @@
 ``SMCUpdater``).
 
 The port runs eagerly. One update step is: reweight (the model's fused
-hook, the max-shifted log path or the linear path) → normalize → ESS check
-→ resample when the ESS fell to ``resample_thresh · n``. The ESS gate,
+hook, the max-shifted log path or the linear path) → normalize → the
+model's ``update_timestep`` when it is time-dependent → ESS check →
+resample when the ESS fell to ``resample_thresh · n``. The ESS gate,
 the zero-weight flag and the step's log-normalization come to the host in
 ONE device→host copy per step (the JAX package keeps the gate on the
 device with a 0/1-trip ``while_loop``); everything else stays on the
@@ -135,11 +136,13 @@ def resample_interval_gate(idx, resample_interval):
 def _update_step(model, resampler, state, outcome, eps, resample_thresh,
                  zero_weight_thresh, generator, check_resample=True,
                  resample_gate=None):
-    """One SMC update: reweight → normalize → ESS check → resample.
+    """One SMC update: reweight → normalize → (time-dependent models:
+    ``update_timestep``) → ESS check → resample.
 
     :param outcome: the observed outcome (tensor on the state's device).
     :param eps: expparams dict of ONE experiment, on the state's device.
-    :param generator: the :class:`torch.Generator` the resample draws from.
+    :param generator: the :class:`torch.Generator` the timestep and the
+        resample draw from.
     :param resample_gate: optional bool that additionally gates the
         resample (see :func:`resample_interval_gate`).
     :return: ``(new_state, log_norm, was_zero)`` with ``log_norm`` a float
@@ -151,6 +154,9 @@ def _update_step(model, resampler, state, outcome, eps, resample_thresh,
     was_zero_t = norm <= zero_weight_thresh
     new_w = torch.where(was_zero_t, 1.0 / n,
                         hyp / torch.clamp_min(norm, EPS))
+    locs = state.locations
+    if model.is_time_dependent:
+        locs = model.update_timestep(generator, locs, eps)[:, :, 0]
     ess = 1.0 / torch.sum(new_w * new_w)
     # the step's one device→host copy
     was_zero, below, log_norm_host = torch.stack([
@@ -159,7 +165,6 @@ def _update_step(model, resampler, state, outcome, eps, resample_thresh,
     do_resample = (bool(check_resample) and below > 0
                    and (resample_gate is None or bool(resample_gate)))
 
-    locs = state.locations
     n_fallback = 0
     if do_resample:
         new_w, locs, n_fallback = resampler.call_with_diagnostics(

@@ -10,9 +10,11 @@ has none:
 import pytest
 import torch
 
+from qinfer_tpu_torch.ops import jacobi as jac
 from qinfer_tpu_torch.ops import precession as prec
 from qinfer_tpu_torch.ops import streaming_resample as sr
 from qinfer_tpu_torch.resamplers import counting_multiplicities_from_u
+from qinfer_tpu_torch.tomography import bases
 
 pytestmark = pytest.mark.cuda
 
@@ -113,3 +115,116 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(_card):
         sr.streaming_resample_locations(m, s, x)
     with pytest.raises(ValueError):
         sr.streaming_resample_locations(m.long(), s, x.contiguous())
+
+
+# -- K4-K6: the Jacobi kernels ------------------------------------------------
+#
+# The kernel rounds every step as the plain version's separate elementwise
+# ops do (no FMA contraction), so the two agree far inside these bounds:
+# 1e-6 of the largest entry for eigenvalues and projections, 1e-5 for
+# eigenvectors (a rounding flip inside a nearly degenerate pair rotates
+# them more than the spectrum). Embedded inputs, whose eigenvalues come in
+# exact pairs, take EMBEDDED_SWEEPS sweeps, as the tomography models run
+# them.
+
+
+def _symmetric(g, n, d, embedded=False):
+    """Random symmetric matrices, or the embedding of random Hermitian
+    ones (every eigenvalue twice) when ``embedded``."""
+    if embedded:
+        h = d // 2
+        re = torch.randn((n, h, h), generator=g, device="cuda")
+        im = torch.randn((n, h, h), generator=g, device="cuda")
+        re, im = re + re.transpose(1, 2), im - im.transpose(1, 2)
+        return bases.assemble_embedding(re, im).contiguous()
+    a = torch.randn((n, d, d), generator=g, device="cuda")
+    return (a + a.transpose(1, 2)).contiguous()
+
+
+_JACOBI_SHAPES = [(n, d) for d in (4, 8, 16, 32)
+                  for n in (1, 1023, 50_001)]
+
+
+@pytest.mark.parametrize("n, d", _JACOBI_SHAPES)
+def test_jacobi_eigh_kernel_matches_plain(_card, n, d):
+    embedded = n % 2 == 1
+    a = _symmetric(_gen(n + d), n, d, embedded=embedded)
+    sweeps = bases.EMBEDDED_SWEEPS if embedded else 6
+    before = jac.jacobi_eigh_lanes.launches
+    ev, V = jac.jacobi_eigh_lanes(a, sweeps=sweeps)
+    ev_p, V_p = jac.jacobi_eigh_lanes_plain(a, sweeps=sweeps)
+    torch.cuda.synchronize()
+    assert jac.jacobi_eigh_lanes.launches == before + 1
+    scale = float(a.abs().max())
+    torch.testing.assert_close(ev, ev_p, rtol=0, atol=1e-6 * scale)
+    torch.testing.assert_close(V, V_p, rtol=0, atol=1e-5)
+    recon = (V * ev[:, None, :]) @ V.transpose(1, 2)
+    assert float((recon - a).abs().max()) <= 2e-5 * scale * d / 8
+
+
+@pytest.mark.parametrize("looped", [False, True])
+@pytest.mark.parametrize("n, d", _JACOBI_SHAPES)
+def test_jacobi_project_kernel_matches_plain(_card, n, d, looped):
+    fn = (jac.jacobi_project_lanes_looped if looped
+          else jac.jacobi_project_lanes)
+    embedded = n % 2 == 0
+    a = _symmetric(_gen(3 * n + d), n, d, embedded=embedded)
+    sweeps = bases.EMBEDDED_SWEEPS if embedded else 6
+    before = fn.launches
+    got = fn(a, sweeps=sweeps, trace=2.0)
+    want = jac.jacobi_project_lanes_plain(a, sweeps=sweeps, trace=2.0)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6 * 2.0)
+    assert torch.equal(got, got.transpose(1, 2))
+    # rows with positive mass come out with trace 2 (a negative definite
+    # random matrix projects to 0)
+    ev, _ = jac.jacobi_eigh_lanes_plain(a, sweeps=sweeps)
+    mass = torch.clamp_min(ev, 0.0).sum(-1) > 1e-3
+    tr = torch.diagonal(got, dim1=1, dim2=2).sum(-1)[mass]
+    torch.testing.assert_close(tr, torch.full_like(tr, 2.0), rtol=0,
+                               atol=1e-4)
+
+
+def test_jacobi_kernels_take_denormal_and_overflowing_pivots(_card):
+    """|a_pq| below the 1e-30 guard (here a denormal) skips the rotation;
+    just above it, theta² overflows to inf and t = 0: no NaN either way."""
+    a = torch.zeros((4, 8, 8), device="cuda")
+    a[:] = torch.diag(torch.arange(1.0, 9.0, device="cuda"))
+    a[0, 0, 7] = a[0, 7, 0] = 1e-39  # denormal, under the guard
+    a[1, 2, 5] = a[1, 5, 2] = 2e-30  # above the guard: theta ~ 7.5e29
+    a[2, 1, 6] = a[2, 6, 1] = -3e-38
+    a[3, 0, 1] = a[3, 1, 0] = 1e-3
+    ev, V = jac.jacobi_eigh_lanes(a)
+    ev_p, V_p = jac.jacobi_eigh_lanes_plain(a)
+    out = jac.jacobi_project_lanes(a)
+    torch.cuda.synchronize()
+    for t in (ev, V, out):
+        assert bool(torch.isfinite(t).all())
+    torch.testing.assert_close(ev, ev_p, rtol=0, atol=1e-6)
+    torch.testing.assert_close(V, V_p, rtol=0, atol=1e-6)
+    torch.testing.assert_close(ev[:3], torch.diagonal(a[:3], dim1=1, dim2=2),
+                               rtol=0, atol=1e-6)
+
+
+def test_batched_jacobi_eigh_small_pads_odd_d_on_the_card(_card):
+    a = _symmetric(_gen(9), 777, 7)
+    before = jac.jacobi_eigh_lanes.launches
+    ev, V = bases.batched_jacobi_eigh_small(a)
+    torch.cuda.synchronize()
+    assert jac.jacobi_eigh_lanes.launches == before + 1
+    assert ev.shape == (777, 7) and V.shape == (777, 7, 7)
+    recon = (V * ev[:, None, :]) @ V.transpose(1, 2)
+    assert float((recon - a).abs().max()) <= 2e-5 * float(a.abs().max())
+
+
+def test_jacobi_wrappers_refuse_what_the_kernel_does_not_take(_card):
+    for bad in (torch.zeros((4, 7, 7), device="cuda"),
+                torch.zeros((4, 34, 34), device="cuda"),
+                torch.zeros((4, 8, 8), device="cuda", dtype=torch.float64),
+                torch.zeros((8, 8, 4), device="cuda").transpose(0, 2),
+                torch.zeros((0, 8, 8), device="cuda")):
+        with pytest.raises(ValueError):
+            jac.jacobi_eigh_lanes(bad)
+        with pytest.raises(ValueError):
+            jac.jacobi_project_lanes_looped(bad)

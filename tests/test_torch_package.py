@@ -13,7 +13,7 @@ import torch
 
 import qinfer_tpu_torch as qt
 from qinfer_tpu_torch import kernels
-from qinfer_tpu_torch.ops import precession, streaming_resample
+from qinfer_tpu_torch.ops import jacobi, precession, streaming_resample
 
 PKG = Path(qt.__file__).resolve().parent
 ROOT = PKG.parent
@@ -21,7 +21,9 @@ ROOT = PKG.parent
 
 def test_importing_the_port_leaves_jax_out():
     code = ("import sys, qinfer_tpu_torch, qinfer_tpu_torch.bench, "
-            "qinfer_tpu_torch.convert, qinfer_tpu_torch.kernels; "
+            "qinfer_tpu_torch.convert, qinfer_tpu_torch.kernels, "
+            "qinfer_tpu_torch.tomography, "
+            "qinfer_tpu_torch.tomography_bench; "
             "print(sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'qinfer_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -52,20 +54,32 @@ def test_import_builds_nothing():
 
 def test_launch_counters_stay_zero_on_cpu():
     wrappers = (precession.fused_precession_update, precession.precession_pr0,
-                streaming_resample.streaming_resample_locations)
+                streaming_resample.streaming_resample_locations,
+                jacobi.jacobi_project_lanes,
+                jacobi.jacobi_project_lanes_looped, jacobi.jacobi_eigh_lanes)
     for fn in wrappers:
         fn.launches = 0
     _, extra = qt.perf_test(qt.AcceleratedPrecessionModel(), 2048,
                             qt.UniformDistribution([[0.0, 1.0]]), 30,
                             true_mps=[[0.7]], seed=4)
     assert extra["updater"].resample_count > 0
-    assert [fn.launches for fn in wrappers] == [0, 0, 0]
+    from qinfer_tpu_torch import tomography_bench as tb
+    cfg = tb.make_config("process", torch.device("cpu"), 1)
+    run = tb.timed_run(cfg, 300, 40, 0, torch.device("cpu"))
+    assert run["projections"] > 0
+    assert [fn.launches for fn in wrappers] == [0] * 6
     assert kernels.library.cache_info().currsize == 0
 
 
 def test_cuda_sources_carry_their_notes_and_the_accurate_cosine():
     sources = {p.name: p.read_text() for p in kernels.CSRC_DIR.glob("*.cu")}
-    assert set(sources) == {"precession.cu", "streaming_resample.cu"}
+    assert set(sources) == {"precession.cu", "streaming_resample.cu",
+                            "jacobi.cu"}
+    for fn in ("jacobi_project_lanes", "jacobi_project_lanes_looped",
+               "jacobi_eigh_lanes"):
+        assert f"qinfer_tpu/ops/jacobi.py::{fn}" in sources["jacobi.cu"]
+    # the Jacobi kernel rounds every step explicitly: no contraction
+    assert "__fmul_rn" in sources["jacobi.cu"]
     assert "qinfer_tpu/ops/precession.py::fused_precession_update" in (
         sources["precession.cu"])
     assert "qinfer_tpu/ops/precession.py::precession_pr0" in (
