@@ -10,7 +10,8 @@ one line, and any failure exits non-zero without the final ``ok`` line:
 2. build: compiles the hand-written kernels from ``qinfer_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes (K1-K3 at 2²² particles, K2 also at n = 1, the
-   shape the loop gives it; the Jacobi kernels K4-K6 on embedded
+   shape the loop gives it, K3 also at the process path's n = 50 000,
+   d = 255, bit-exact on raw bit patterns; the Jacobi kernels K4-K6 on embedded
    Ginibre/BCSZ states pushed out of the PSD cone as Liu-West proposals
    are, and on random symmetric matrices, also against host float64
    ``numpy.linalg.eigh`` on a subsample), with the tolerance stated;
@@ -24,12 +25,17 @@ one line, and any failure exits non-zero without the final ``ok`` line:
    resample, K6 in the BCSZ prior draw); diffusive two-qubit state
    tomography (100 000 particles, 200 steps: K4 at every step that left
    the cone). Each tomography run must beat the prior mean's fidelity;
-6. timing: each kernel's time against its plain version's, after the
-   main paths so the profiler cannot slow the loops: K1-K3 by profiler
-   device time, K4-K6 by CUDA events.
+6. timing: each kernel's time against its plain version's and, where one
+   PyTorch call computes the same function, that call's (``library_ms``:
+   ``repeat_interleave`` for K3, ``torch.linalg.eigh`` for K6 where
+   cuSOLVER takes the batch), beside the kernel's bound (:func:`bound`),
+   after the main paths so the profiler cannot slow the loops: K1-K3 by
+   profiler device time, K4-K6 by CUDA events.
 
 Then it prints the kernels' JSON line, the card line and, last,
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --kernels-only``
+runs phases 1-3 and 6 alone, prints the kernels' line (without launch
+counts) and the card, and no ``ok`` line.
 """
 
 import json
@@ -44,6 +50,37 @@ N_MAIN = 1 << 22
 TOMO_PATHS = (("process", 50_000, 1000), ("diffusive", 100_000, 200))
 #: rows of each Jacobi batch held against host float64
 N_F64 = 2000
+#: the process path's resample fill: (particles, parameters)
+K3_PROCESS = (50_000, 255)
+#: the card's peaks (H100 SXM data sheet): device-memory bytes a second,
+#: and float32 operations a second outside the tensor cores with each
+#: operation rounded on its own (the sheet's 67 TFLOP/s count an FMA as 2)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 33.5e12
+
+
+def bound(nbytes, ops):
+    """``(bound_ms, bound_by)``: the least time of a call that must move
+    ``nbytes`` of device memory (each input read once, each output written
+    once) and do ``ops`` float32 operations."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                             "operations")
+
+
+def jacobi_bound(n, d, sweeps, project):
+    """Bound of a Jacobi kernel call on ``n`` (d, d) matrices: per rotation
+    15 operations for the angle and 18·d for the columns of A and V and the
+    rows of A (4 products and 2 sums a pair of entries); the projection's
+    epilogue 4·d for the clipped trace and 3·d − 1 per upper-triangle
+    entry. Divides and square roots count as one operation each. Bytes:
+    the batch read once and written once (and d eigenvalues for K6)."""
+    ops = sweeps * (d - 1) * (d // 2) * (18 * d + 15)
+    if project:
+        ops += 4 * d + d * (d + 1) // 2 * (3 * d - 1)
+    nbytes = 8 * d * d + (0 if project else 4 * d)
+    return bound(n * nbytes, n * ops)
 
 
 class SmokeFailure(Exception):
@@ -101,25 +138,34 @@ def event_ms(fn, reps=5):
     return start.elapsed_time(end) / reps
 
 
-def time_pair(kernel_fn, plain_fn, timer=device_ms):
-    """Kernel and plain times in turns (plain, kernel, kernel, plain); each
-    the mean of its two readings."""
-    p1 = timer(plain_fn)
-    k1 = timer(kernel_fn)
-    k2 = timer(kernel_fn)
-    p2 = timer(plain_fn)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+def time_turns(fns, timer):
+    """Times of each of ``fns`` (kernel first), taken in turns: the list,
+    then the list reversed (plain, library, kernel, kernel, library,
+    plain); each the mean of its two readings."""
+    first = [timer(fn) for fn in reversed(fns)][::-1]
+    second = [timer(fn) for fn in fns]
+    return [(a + b) / 2 for a, b in zip(first, second)]
+
+
+def timed(result, kernel, plain, library=None, no_library=None,
+          bound_at=None):
+    """One kernel to time: its JSON ``result`` (or a label for a shape
+    timed besides), its kernel, plain and library calls, why it has no
+    library call, and ``(bound_ms, bound_by)`` at this shape."""
+    return dict(result=result, kernel=kernel, plain=plain, library=library,
+                no_library=no_library, bound=bound_at)
 
 
 def check_kernels(torch, dev):
     """Phase 3: each kernel against its plain version at main-path shapes.
 
-    Returns one ``(result, kernel_fn, plain_fn)`` per kernel, at the shape
-    the main path launches it with (K2 at n = 1: the true model inside
-    ``simulate_experiment``), and ``(label, kernel_fn, plain_fn)`` for
-    shapes timed besides (K2 at n = 2²²). The timing itself runs after the
-    main path (:func:`time_kernels`), so that the profiler cannot slow the
-    timed loop."""
+    Returns one :func:`timed` entry per kernel, at the shape the main path
+    launches it with (K2 at n = 1: the true model inside
+    ``simulate_experiment``; K3 at the precession path's d = 1), and
+    entries for shapes timed besides (K2 at n = 2²², K3 at the process
+    path's d = 255). The timing itself runs after the main path
+    (:func:`time_kernels`), so that the profiler cannot slow the timed
+    loop."""
     from qinfer_tpu_torch.ops import precession as prec
     from qinfer_tpu_torch.ops import streaming_resample as sr
     from qinfer_tpu_torch.resamplers import counting_multiplicities_from_u
@@ -150,14 +196,17 @@ def check_kernels(torch, dev):
                 require(rel <= 1e-5, f"K1 {name} rel err {rel} at t={t}, "
                                      f"outcome={outcome}")
             err = max(err, e)
-    timers.append((
+    # bound: ω and w read, h written; ~10 operations a particle (cosf as 1)
+    timers.append(timed(
         dict(name="fused_precession_update", route="cuda",
              source="qinfer_tpu_torch/csrc/precession.cu",
              replaces="qinfer_tpu/ops/precession.py:80", max_abs_err=err),
         lambda: prec.fused_precession_update(omega, w, 37.5, 1,
                                              normalize=False),
         lambda: prec.fused_precession_update_plain(omega, w, 37.5, 1,
-                                                   normalize=False)))
+                                                   normalize=False),
+        no_library="no one PyTorch call fuses the reweight and its sums",
+        bound_at=bound(12 * n, 10 * n)))
     say("kernels", f"K1 fused_precession_update n={n}: max |dh|={err:.3g}")
 
     # K2: cos² in [0, 1], atol 1e-6; at n = 1 too (the true model inside
@@ -172,19 +221,25 @@ def check_kernels(torch, dev):
         require(e <= 1e-6, f"K2 differs by {e} at n={om.shape[0]}, "
                            f"n_e={tt.shape[0]}")
         err = max(err, e)
-    timers.append((
+    # bound: ω and t read, cos² written; 3 operations an entry (cosf as 1)
+    no_cos2 = "no one PyTorch call computes cos²(ω·t/2)"
+    timers.append(timed(
         dict(name="precession_pr0", route="cuda",
              source="qinfer_tpu_torch/csrc/precession.cu",
              replaces="qinfer_tpu/ops/precession.py:146", max_abs_err=err),
         lambda: prec.precession_pr0(omega[:1], ts[1:2]),
-        lambda: prec.precession_pr0_plain(omega[:1], ts[1:2])))
-    extra.append(("precession_pr0 n=2^22",
-                  lambda: prec.precession_pr0(omega, ts[1:2]),
-                  lambda: prec.precession_pr0_plain(omega, ts[1:2])))
+        lambda: prec.precession_pr0_plain(omega[:1], ts[1:2]),
+        no_library=no_cos2, bound_at=bound(12, 3)))
+    extra.append(timed(
+        "precession_pr0 n=2^22",
+        lambda: prec.precession_pr0(omega, ts[1:2]),
+        lambda: prec.precession_pr0_plain(omega, ts[1:2]),
+        no_library=no_cos2, bound_at=bound(8 * n + 4, 3 * n)))
     say("kernels", f"K2 precession_pr0 n={n} and n=1: max err={err:.3g}")
 
     # K3: bit-exact (int32 views equal), at d = 1, at d = 3 with a
-    # non-multiple n, and on a block of every kind of f32 pattern
+    # non-multiple n, and on blocks of every kind of f32 pattern, one of
+    # them at the process path's shape
     def fill_case(nn, d, bits):
         ww = torch.rand((nn,), generator=g, device=dev) ** 8 + 1e-12
         ww = ww / ww.sum()
@@ -199,22 +254,33 @@ def check_kernels(torch, dev):
         return m, s, x
 
     cases = [fill_case(n, 1, False), fill_case(n - 3, 3, False),
-             fill_case(65536 + 7, 2, True)]
+             fill_case(65536 + 7, 2, True), fill_case(*K3_PROCESS, True)]
     for m, s, x in cases:
         got = sr.streaming_resample_locations(m, s, x)
         want = sr.streaming_resample_locations_plain(m, s, x)
         require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
                 f"K3 not bit-exact at n={x.shape[0]}, d={x.shape[1]}")
-    m, s, x = cases[0]
-    timers.append((
+
+    def fill_timed(result, m, s, x):
+        # bound: starts and x read, out written; no arithmetic
+        nn, d = x.shape
+        return timed(
+            result, lambda: sr.streaming_resample_locations(m, s, x),
+            lambda: sr.streaming_resample_locations_plain(m, s, x),
+            library=lambda: torch.repeat_interleave(x, m, dim=0,
+                                                    output_size=nn),
+            bound_at=bound(4 * nn + 8 * nn * d, 0))
+
+    timers.append(fill_timed(
         dict(name="streaming_resample_locations", route="cuda",
              source="qinfer_tpu_torch/csrc/streaming_resample.cu",
              replaces="qinfer_tpu/ops/streaming_resample.py:181",
-             max_abs_err=0.0),
-        lambda: sr.streaming_resample_locations(m, s, x),
-        lambda: sr.streaming_resample_locations_plain(m, s, x)))
+             max_abs_err=0.0), *cases[0]))
+    extra.append(fill_timed("streaming_resample_locations n=%d, d=%d"
+                            % K3_PROCESS, *cases[3]))
     say("kernels", f"K3 streaming_resample_locations n={n}, d=1: bit-exact "
-                   f"(also d=3, n={n - 3}, and raw bit patterns)")
+                   f"(also d=3, n={n - 3}, and raw bit patterns at d=2 and "
+                   f"at n, d = {K3_PROCESS})")
     return timers, extra
 
 
@@ -259,13 +325,13 @@ def check_jacobi_kernels(torch, dev):
     symmetric matrices (6 sweeps, the kernels' default).
 
     Tolerances. Kernel against plain: 1e-6 absolute on projections (trace
-    2) and eigenvalues, 1e-5 on eigenvectors; the kernel rounds each step
-    as the plain version's separate ops do. Against float64: the JAX
-    package's TPU accuracy figures (docs/PERF_NOTES.md): projection 2.3e-6
-    at d = 8, 2.5e-5 at d = 16, 2.8e-5 at d = 32; eigenvalues 1.1e-5 at
-    d = 8 and 2.5e-5 at d = 16. Also: exact symmetry, trace 2 ± 1e-4 on
-    rows with positive mass, and for K6 reconstruction ≤ 2e-5·max|a| and
-    ‖VᵀV − I‖∞ ≤ 1e-5."""
+    2) and eigenvalues, 1e-5 on eigenvectors, and 0 for K5's warp kernel;
+    the kernels round each step as the plain version's separate ops do.
+    Against float64: the JAX package's TPU accuracy figures
+    (docs/PERF_NOTES.md): projection 2.3e-6 at d = 8, 2.5e-5 at d = 16,
+    2.8e-5 at d = 32; eigenvalues 1.1e-5 at d = 8 and 2.5e-5 at d = 16.
+    Also: exact symmetry, trace 2 ± 1e-4 on rows with positive mass, and
+    for K6 reconstruction ≤ 2e-5·max|a| and ‖VᵀV − I‖∞ ≤ 1e-5."""
     import numpy as np
     from qinfer_tpu_torch import tomography as tomo
     from qinfer_tpu_torch.ops import jacobi as jac
@@ -285,10 +351,11 @@ def check_jacobi_kernels(torch, dev):
                      (_random_symmetric(torch, dev, n, d, g), 6))
 
     timers, extra = [], []
+    no_projection = "no one PyTorch call projects onto the PSD cone"
     proj_tol = {8: 2.3e-6, 16: 2.5e-5, 32: 2.8e-5}
     # (kernel, its plain version, TPU wrapper line, shapes checked, the
     # main path's shape: the diffusive path's d = 8, the process path's 32)
-    for name, fn, plain, line, dims, timed in (
+    for name, fn, plain, line, dims, main_d in (
             ("jacobi_project_lanes", jac.jacobi_project_lanes,
              jac.jacobi_project_lanes_plain, 309, (8, 16), 8),
             ("jacobi_project_lanes_looped", jac.jacobi_project_lanes_looped,
@@ -300,7 +367,9 @@ def check_jacobi_kernels(torch, dev):
                 want = plain(a, sweeps=sweeps)
                 torch.cuda.synchronize()
                 e = float((got - want).abs().max())
-                require(e <= 1e-6, f"{name} d={d} differs from plain by {e}")
+                # the warp kernel (K5) rounds as the plain version: exactly
+                require(e <= (0.0 if name.endswith("looped") else 1e-6),
+                        f"{name} d={d} differs from plain by {e}")
                 require(torch.equal(got, got.transpose(1, 2)),
                         f"{name} d={d}: output not exactly symmetric")
                 sub = got[:N_F64].cpu().numpy()
@@ -315,18 +384,31 @@ def check_jacobi_kernels(torch, dev):
                                f"|kernel - plain| {e:.3g}, |kernel - f64| "
                                f"{e64:.3g}")
                 err = max(err, e)
-        a, sweeps = inputs[timed][0]
-        timers.append((
+        a, sweeps = inputs[main_d][0]
+        timers.append(timed(
             dict(name=name, route="cuda",
                  source="qinfer_tpu_torch/csrc/jacobi.cu",
                  replaces=f"qinfer_tpu/ops/jacobi.py:{line}",
                  max_abs_err=err),
             lambda fn=fn, a=a, s=sweeps: fn(a, sweeps=s),
-            lambda plain=plain, a=a, s=sweeps: plain(a, sweeps=s)))
+            lambda plain=plain, a=a, s=sweeps: plain(a, sweeps=s),
+            no_library=no_projection,
+            bound_at=jacobi_bound(a.shape[0], main_d, sweeps, True)))
     a16, s16 = inputs[16][0]
-    extra.append(("jacobi_project_lanes (50000, 16, 16)",
-                  lambda: jac.jacobi_project_lanes(a16, sweeps=s16),
-                  lambda: jac.jacobi_project_lanes_plain(a16, sweeps=s16)))
+    extra.append(timed(
+        "jacobi_project_lanes (50000, 16, 16)",
+        lambda: jac.jacobi_project_lanes(a16, sweeps=s16),
+        lambda: jac.jacobi_project_lanes_plain(a16, sweeps=s16),
+        no_library=no_projection,
+        bound_at=jacobi_bound(a16.shape[0], 16, s16, True)))
+    # K5's input through K4's block kernel: the design K5 had before
+    a32, s32 = inputs[32][0]
+    extra.append(timed(
+        "jacobi_project_lanes (50000, 32, 32), the block kernel",
+        lambda: jac.jacobi_project_lanes(a32, sweeps=s32),
+        lambda: jac.jacobi_project_lanes_plain(a32, sweeps=s32),
+        no_library=no_projection,
+        bound_at=jacobi_bound(a32.shape[0], 32, s32, True)))
 
     ev_tol = {8: 1.1e-5, 16: 2.5e-5}
     err = 0.0
@@ -364,37 +446,82 @@ def check_jacobi_kernels(torch, dev):
                            f"{orth:.3g}, |ev - f64| {e64:.3g}")
             err = max(err, e)
     # K6's main-path shape: E(S) of the BCSZ prior draw, (50 000, 8, 8)
-    a8 = inputs[8][0][0][:50_000]
-    timers.append((
+    a8 = inputs[8][0][0][:50_000].contiguous()
+    timers.append(timed(
         dict(name="jacobi_eigh_lanes", route="cuda",
              source="qinfer_tpu_torch/csrc/jacobi.cu",
              replaces="qinfer_tpu/ops/jacobi.py:269", max_abs_err=err),
         lambda: jac.jacobi_eigh_lanes(a8, sweeps=EMBEDDED_SWEEPS),
-        lambda: jac.jacobi_eigh_lanes_plain(a8, sweeps=EMBEDDED_SWEEPS)))
+        lambda: jac.jacobi_eigh_lanes_plain(a8, sweeps=EMBEDDED_SWEEPS),
+        **eigh_library(torch, a8),
+        bound_at=jacobi_bound(a8.shape[0], 8, EMBEDDED_SWEEPS, False)))
     return timers, extra
 
 
+def eigh_library(torch, a):
+    """K6's library call, ``torch.linalg.eigh`` on the same batch, if
+    cuSOLVER takes it; else the refusal, and the time of the largest batch
+    (halving from ``a``'s) that it takes."""
+    def call(b):
+        return lambda: torch.linalg.eigh(b)
+
+    try:
+        call(a)()
+        torch.cuda.synchronize()
+        return dict(library=call(a))
+    except RuntimeError as exc:
+        refusal = str(exc).strip().splitlines()[0]
+    b = a[:a.shape[0] // 2]
+    while b.shape[0] >= 1:
+        try:
+            call(b)()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            b = b[:b.shape[0] // 2]
+            continue
+        say("kernels", f"torch.linalg.eigh takes {b.shape[0]} of the "
+                       f"{a.shape[0]} (8, 8) matrices: {event_ms(call(b)):.4f}"
+                       f" ms by CUDA events")
+        break
+    return dict(no_library=f"torch.linalg.eigh refuses the batch "
+                           f"{tuple(a.shape)}: {refusal}")
+
+
 def time_kernels(timers, extra):
-    """Phase 6: time of each kernel and of its plain version at the main
-    paths' shapes, then at the shapes in ``extra`` (printed only): K1-K3 by
-    profiler device time, first; then the Jacobi kernels K4-K6 by CUDA
-    events (:func:`event_ms`)."""
+    """Phase 6: time of each kernel, of its plain version and of its
+    library call at the main paths' shapes, then at the shapes in
+    ``extra`` (printed only): K1-K3 by profiler device time, first; then
+    the Jacobi kernels K4-K6 by CUDA events (:func:`event_ms`). Each
+    result gains ``ms``, ``plain_ms``, ``library_ms`` (null, with the
+    reason printed, where no one PyTorch call computes the same function),
+    ``bound_ms`` and ``bound_by``."""
     results = []
     for jacobi in (False, True):
         timer, how = (event_ms, "CUDA events") if jacobi else (
             device_ms, "device time")
-        for result, kernel_fn, plain_fn in timers:
-            if result["name"].startswith("jacobi") == jacobi:
-                result["ms"], result["plain_ms"] = time_pair(
-                    kernel_fn, plain_fn, timer)
-                say("timing", f"{result['name']}: {result['ms']:.4f} ms "
-                              f"{how} (plain {result['plain_ms']:.4f} ms)")
-                results.append(result)
-        for label, kernel_fn, plain_fn in extra:
-            if label.startswith("jacobi") == jacobi:
-                ms, plain_ms = time_pair(kernel_fn, plain_fn, timer)
-                say("timing", f"{label}: {ms:.4f} ms {how} (plain "
-                              f"{plain_ms:.4f} ms)")
+        for t in timers + extra:
+            label = t["result"]
+            label = label if isinstance(label, str) else label["name"]
+            if label.startswith("jacobi") != jacobi:
+                continue
+            fns = [t["kernel"], t["plain"]] + (
+                [t["library"]] if t["library"] else [])
+            ms = time_turns(fns, timer) + [None]
+            bound_ms, bound_by = t["bound"]
+            say("timing", f"{label}: {ms[0]:.4f} ms {how} (plain "
+                          f"{ms[1]:.4f} ms, library " + (
+                              f"{ms[2]:.4f} ms" if ms[2] is not None
+                              else "none") +
+                          f"; bound {bound_ms:.4g} ms by {bound_by}, "
+                          f"{100 * bound_ms / ms[0]:.1f} % of it)")
+            if ms[2] is None:
+                say("timing", f"{label}: no library call: "
+                              f"{t['no_library']}")
+            if not isinstance(t["result"], str):
+                t["result"].update(ms=ms[0], plain_ms=ms[1],
+                                   library_ms=ms[2], bound_ms=bound_ms,
+                                   bound_by=bound_by)
+                results.append(t["result"])
     return results
 
 
@@ -557,7 +684,10 @@ def run_tomography_path(torch, dev, mode, n, steps, card):
     return launches
 
 
-def main():
+def main(argv):
+    kernels_only = argv == ["--kernels-only"]
+    require(not argv or kernels_only,
+            f"usage: chip_smoke.py [--kernels-only], got {argv}")
     sys.path.insert(0, ROOT)
     try:
         import torch
@@ -583,12 +713,23 @@ def main():
     t0 = time.perf_counter()
     lib_path, log = kernels.build()
     kernels.library()
-    regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+    regs = [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln or "Compiling" in ln]
     say("build", f"{os.path.relpath(lib_path, ROOT)} in "
                  f"{time.perf_counter() - t0:.1f} s; ptxas: {regs}")
+    # K5's d = 32 instance: registers and any local memory (stack frame)
+    k5 = log.split("warp_kernelILi32E", 1)[-1].split("Compiling", 1)[0]
+    say("build", "K5 warp kernel, d = 32: " + "; ".join(
+        ln.strip() for ln in k5.splitlines()
+        if "stack frame" in ln or "registers" in ln))
 
     timers, extra = check_kernels(torch, dev)
     jac_timers, jac_extra = check_jacobi_kernels(torch, dev)
+    if kernels_only:
+        results = time_kernels(timers + jac_timers, extra + jac_extra)
+        print(json.dumps({"kernels": results}))
+        print(card)
+        return
     check_engine(torch, dev)
     launches, best, rate = run_main_path(torch, dev)
     say("main", f"best of 3 runs: {best:.4f} s for "
@@ -616,7 +757,7 @@ def main():
 
 if __name__ == "__main__":
     try:
-        main()
+        main(sys.argv[1:])
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         sys.exit(1)

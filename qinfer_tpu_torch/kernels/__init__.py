@@ -54,6 +54,8 @@ _SIGNATURES = {
     "qk_streaming_resample_locations": (
         [_VP, _VP, _VP, _LL, _LL, _VP], ctypes.c_int),
     "qk_jacobi_project": ([_VP, _VP, _LL, _I, _I, _F, _F, _VP], ctypes.c_int),
+    "qk_jacobi_project_warp": (
+        [_VP, _VP, _LL, _I, _I, _F, _F, _VP], ctypes.c_int),
     "qk_jacobi_eigh": ([_VP, _VP, _VP, _LL, _I, _I, _VP], ctypes.c_int),
     "qk_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }

@@ -12,8 +12,11 @@ at 0, rescale them to sum to ``trace`` and rebuild ``V diag(ev) Vᵀ``, with
 each upper-triangle entry stored to both (i, j) and (j, i), so the output
 is exactly symmetric.
 
-One hand-written CUDA kernel serves all three (``csrc/jacobi.cu``; K4 and
-K5 differ on the TPU only in code shape). The plain PyTorch versions run
+Two hand-written CUDA kernels serve them (``csrc/jacobi.cu``): K4 and K6
+run the block kernel, one matrix per d/2 threads in shared memory; K5
+runs the warp kernel, one matrix per warp in registers, lane r holding
+row r (its mate in each round from :func:`round_robin_mate`). The two
+round every step alike. The plain PyTorch versions run
 the same schedule one batched round at a time with index gathers, each
 elementwise step the same rounded operation as the kernel's. A wrapper
 uses the plain version only for tensors on the CPU; for a CUDA tensor it
@@ -31,7 +34,8 @@ import torch
 from .. import kernels as _k
 from ..config import EPS
 
-__all__ = ["round_robin_rounds", "jacobi_eigh_lanes", "jacobi_eigh_lanes_plain",
+__all__ = ["round_robin_rounds", "round_robin_mate", "jacobi_eigh_lanes",
+           "jacobi_eigh_lanes_plain",
            "jacobi_project_lanes", "jacobi_project_lanes_plain",
            "jacobi_project_lanes_looped", "jacobi_project_lanes_looped_plain"]
 
@@ -54,6 +58,17 @@ def round_robin_rounds(d):
     return [[(min(ring(i, r), ring(d - 1 - i, r)),
               max(ring(i, r), ring(d - 1 - i, r))) for i in range(d // 2)]
             for r in range(d - 1)]
+
+
+def round_robin_mate(row, r, d):
+    """The row paired with ``row`` in round ``r`` of
+    :func:`round_robin_rounds`: the closed form each lane of K5's warp
+    kernel evaluates for its own row (``csrc/jacobi.cu``). Row 0 sits in
+    slot 0; row i > 0 in slot ``1 + (i − 1 + r) mod (d − 1)``; the mate is
+    the row in the opposite slot ``d − 1 − slot``."""
+    slot = 0 if row == 0 else 1 + (row - 1 + r) % (d - 1)
+    opposite = d - 1 - slot
+    return 0 if opposite == 0 else 1 + (opposite - 1 - r + (d - 1)) % (d - 1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -141,12 +156,12 @@ def _check_cuda(name, a):
             f"2 <= d <= {MAX_D}, got {tuple(a.shape)}")
 
 
-def _project(name, a, sweeps, trace, eps):
+def _project(name, entry, a, sweeps, trace, eps):
     _check_cuda(name, a)
     n, d, _ = a.shape
     out = torch.empty_like(a)
     with torch.cuda.device(a.device):
-        status = _k.library().qk_jacobi_project(
+        status = getattr(_k.library(), entry)(
             _k.ptr(a), _k.ptr(out), n, d, int(sweeps), ctypes.c_float(trace),
             ctypes.c_float(eps), _k.stream_of(a.device))
     _k.check(status, name)
@@ -182,7 +197,8 @@ def jacobi_project_lanes(a, sweeps=6, trace=2.0, eps=EPS):
     rebuild. The tomography path's projection for embedded d ≤ 16."""
     if not a.is_cuda:
         return jacobi_project_lanes_plain(a, sweeps, trace, eps)
-    out = _project("jacobi_project_lanes", a, sweeps, trace, eps)
+    out = _project("jacobi_project_lanes", "qk_jacobi_project", a, sweeps,
+                   trace, eps)
     jacobi_project_lanes.launches += 1
     return out
 
@@ -190,10 +206,12 @@ def jacobi_project_lanes(a, sweeps=6, trace=2.0, eps=EPS):
 def jacobi_project_lanes_looped(a, sweeps=6, trace=2.0, eps=EPS):
     """:func:`jacobi_project_lanes`'s contract, the tomography path's
     projection for embedded 16 < d ≤ 32 (two-qubit channels' Choi
-    states). Counted apart from it."""
+    states), by the warp kernel (any even d ≤ 32). Counted apart from
+    it."""
     if not a.is_cuda:
         return jacobi_project_lanes_looped_plain(a, sweeps, trace, eps)
-    out = _project("jacobi_project_lanes_looped", a, sweeps, trace, eps)
+    out = _project("jacobi_project_lanes_looped", "qk_jacobi_project_warp",
+                   a, sweeps, trace, eps)
     jacobi_project_lanes_looped.launches += 1
     return out
 

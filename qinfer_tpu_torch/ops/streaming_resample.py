@@ -4,9 +4,10 @@
 Particle ``i`` owns the contiguous output span ``[starts_i, starts_i +
 m_i)``; the fill writes ``m_i`` copies of its coordinates there, which is
 ``np.repeat(x, m, axis=0)``. The hand-written CUDA kernel
-(``csrc/streaming_resample.cu``) finds each output slot's owner by a binary
-search over ``starts`` and copies raw 32-bit words, so the result is
-bit-exact for every float32 pattern. The plain PyTorch version repeats the
+(``csrc/streaming_resample.cu``) gives each block a tile of output rows,
+finds each row's owner once by searches over ``starts`` and copies the
+tile as one coalesced run of raw 32-bit words, so the result is bit-exact
+for every float32 pattern. The plain PyTorch version repeats the
 int32 view of the rows, which is bit-exact too. The wrapper uses the plain
 version only for tensors on the CPU; for a CUDA tensor it launches the
 kernel or raises, and counts launches in its ``launches`` attribute.

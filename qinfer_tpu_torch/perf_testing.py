@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from .abstract_model import atleast_2d
+from .config import DEFAULT_DEVICE, resolve_device
 from .heuristics import PGH
 from .smc import SMCUpdater
 
@@ -28,7 +29,7 @@ PERF_DTYPE = [
 
 def perf_test(model, n_particles, prior, n_exp, heuristic_class=PGH,
               true_model=None, true_prior=None, true_mps=None,
-              extra_updater_args=None, seed=0, device="cpu"):
+              extra_updater_args=None, seed=0, device=DEFAULT_DEVICE):
     """Run one full adaptive inference experiment and record per-step
     performance.
 
@@ -40,13 +41,16 @@ def perf_test(model, n_particles, prior, n_exp, heuristic_class=PGH,
     the current true parameters, the wall time of the step and the
     resample count.
 
+    ``device`` is the card by default; without a CUDA device, pass
+    ``device="cpu"``: the default raises there.
+
     :return: ``(performance, extra)``: a structured array of length
         ``n_exp`` with fields ``PERF_DTYPE``, and a dict with the
         ``updater``, ``true_mps`` and the per-step estimates ``est``.
     """
     true_model = true_model if true_model is not None else model
     true_prior = true_prior if true_prior is not None else prior
-    device = torch.device(device)
+    device = resolve_device(device)
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
 

@@ -21,7 +21,7 @@ import warnings
 
 import torch
 
-from .config import EPS
+from .config import DEFAULT_DEVICE, EPS, resolve_device
 from ._exceptions import ResamplerWarning, ZeroWeightError, ZeroWeightWarning
 from .abstract_model import expparams_at, n_expparams
 from .resamplers import LiuWestResampler
@@ -216,7 +216,8 @@ class SMCUpdater:
     :param float zero_weight_thresh: "all zero" threshold (default 1e-10).
     :param bool canonicalize: apply ``model.canonicalize`` to prior samples.
     :param int seed: seed of the updater's :class:`torch.Generator`.
-    :param device: where the ensemble lives.
+    :param device: where the ensemble lives; the card by default. Without
+        a CUDA device, pass ``device="cpu"``: the default raises there.
 
     Options of the JAX updater outside this port (rejuvenation moves,
     waste-free stages, sharding, resampling diagnostics) raise
@@ -226,7 +227,7 @@ class SMCUpdater:
     def __init__(self, model, n_particles, prior, resample_thresh=0.5,
                  resampler=None, zero_weight_policy="error",
                  zero_weight_thresh=None, canonicalize=True, seed=0,
-                 device="cpu", **options):
+                 device=DEFAULT_DEVICE, **options):
         for name, value in options.items():
             if name not in _LATER_OPTIONS:
                 raise TypeError(
@@ -250,7 +251,7 @@ class SMCUpdater:
                                    else 1e-10)
         self._canonicalize = bool(canonicalize)
         self.seed = int(seed)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.reset()
 
     # -- state management --------------------------------------------------

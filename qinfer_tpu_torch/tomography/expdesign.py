@@ -57,7 +57,7 @@ class _FieldsHeuristic(Heuristic):
     def __init__(self, updater, other_fields=None):
         super().__init__(updater)
         self.other_fields = dict(other_fields or {})
-        self._device = torch.device(getattr(updater, "device", "cpu"))
+        self._device = torch.device(updater.device)
         self._fields = {
             name: torch.as_tensor(val, dtype=torch.float32).reshape(-1)
             .to(self._device) for name, val in self.other_fields.items()}

@@ -75,7 +75,8 @@ def test_k2_kernel_matches_plain(_card, n, n_e):
 
 
 @pytest.mark.parametrize("n, d", [(1, 1), (7, 3), (1000, 1), (4097, 5),
-                                  (65_539, 9)])
+                                  (65_539, 9), (1, 255), (4097, 255),
+                                  (50_000, 255)])
 def test_k3_kernel_is_bit_exact(_card, n, d):
     g = _gen(n + d)
     w = torch.rand((n,), generator=g, device=_card) ** 6 + 1e-12
@@ -83,21 +84,24 @@ def test_k3_kernel_is_bit_exact(_card, n, d):
     raw = torch.randint(-2**31, 2**31, (n, d), generator=g, device=_card,
                         dtype=torch.int64)
     x = raw.to(torch.int32).view(torch.float32)
+    before = sr.streaming_resample_locations.launches
     got = sr.streaming_resample_locations(m, starts, x)
     want = sr.streaming_resample_locations_plain(m, starts, x)
+    assert sr.streaming_resample_locations.launches == before + 1
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_k3_point_mass_and_two_survivors(_card):
     n = 10_000
-    x = torch.randn((n, 2), generator=_gen(1), device=_card)
-    for hot in ([0], [n - 1], [3, n - 2]):
-        w = torch.full((n,), 1e-30, device=_card)
-        w[hot] = 1.0
-        m, starts = counting_multiplicities_from_u(0.5, w, n)
-        got = sr.streaming_resample_locations(m, starts, x)
-        assert torch.equal(got, sr.streaming_resample_locations_plain(
-            m, starts, x))
+    for d in (2, 255):
+        x = torch.randn((n, d), generator=_gen(d), device=_card)
+        for hot in ([0], [n - 1], [3, n - 2]):
+            w = torch.full((n,), 1e-30, device=_card)
+            w[hot] = 1.0
+            m, starts = counting_multiplicities_from_u(0.5, w, n)
+            got = sr.streaming_resample_locations(m, starts, x)
+            assert torch.equal(got, sr.streaming_resample_locations_plain(
+                m, starts, x))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(_card):
@@ -176,6 +180,8 @@ def test_jacobi_project_kernel_matches_plain(_card, n, d, looped):
     torch.cuda.synchronize()
     assert fn.launches == before + 1
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6 * 2.0)
+    if looped:  # the warp kernel rounds every step as the plain version
+        assert torch.equal(got, want)
     assert torch.equal(got, got.transpose(1, 2))
     # rows with positive mass come out with trace 2 (a negative definite
     # random matrix projects to 0)
@@ -184,6 +190,17 @@ def test_jacobi_project_kernel_matches_plain(_card, n, d, looped):
     tr = torch.diagonal(got, dim1=1, dim2=2).sum(-1)[mass]
     torch.testing.assert_close(tr, torch.full_like(tr, 2.0), rtol=0,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("d", range(2, 33, 2))
+def test_warp_projection_equals_plain_at_every_even_d(_card, d):
+    """K5's warp kernel is instantiated for each even d; 37 matrices leave
+    the last block with one warp of four."""
+    for embedded, sweeps in ((False, 6), (True, bases.EMBEDDED_SWEEPS)):
+        a = _symmetric(_gen(d + embedded), 37, d, embedded=embedded)
+        got = jac.jacobi_project_lanes_looped(a, sweeps=sweeps)
+        assert torch.equal(got, jac.jacobi_project_lanes_plain(
+            a, sweeps=sweeps))
 
 
 def test_jacobi_kernels_take_denormal_and_overflowing_pivots(_card):
@@ -198,9 +215,11 @@ def test_jacobi_kernels_take_denormal_and_overflowing_pivots(_card):
     ev, V = jac.jacobi_eigh_lanes(a)
     ev_p, V_p = jac.jacobi_eigh_lanes_plain(a)
     out = jac.jacobi_project_lanes(a)
+    looped = jac.jacobi_project_lanes_looped(a)
     torch.cuda.synchronize()
-    for t in (ev, V, out):
+    for t in (ev, V, out, looped):
         assert bool(torch.isfinite(t).all())
+    assert torch.equal(looped, jac.jacobi_project_lanes_plain(a))
     torch.testing.assert_close(ev, ev_p, rtol=0, atol=1e-6)
     torch.testing.assert_close(V, V_p, rtol=0, atol=1e-6)
     torch.testing.assert_close(ev[:3], torch.diagonal(a[:3], dim1=1, dim2=2),

@@ -80,6 +80,18 @@ def test_round_robin_schedule_matches_jax(d):
     assert jacobi.round_robin_rounds(d) == want
 
 
+@pytest.mark.parametrize("d", [2, 4, 6, 8, 10, 16, 30, 32])
+def test_warp_kernel_mates_match_the_jax_schedule(d):
+    """K5's warp kernel pairs each lane's row with ``round_robin_mate``:
+    every round, those mates are the JAX schedule's pairs."""
+    for r, pairs in enumerate(jax_jacobi._round_robin_rounds(d)):
+        want = {}
+        for p, q in pairs:
+            want[p], want[q] = q, p
+        assert {row: jacobi.round_robin_mate(row, r, d)
+                for row in range(d)} == want
+
+
 def test_eigh_plain_matches_pallas_interpret():
     a = _random_symmetric(7, 300, 4)
     ev_j, V_j = jax_jacobi.jacobi_eigh_lanes(jnp.asarray(a), sweeps=3,

@@ -61,7 +61,7 @@ def test_launch_counters_stay_zero_on_cpu():
         fn.launches = 0
     _, extra = qt.perf_test(qt.AcceleratedPrecessionModel(), 2048,
                             qt.UniformDistribution([[0.0, 1.0]]), 30,
-                            true_mps=[[0.7]], seed=4)
+                            true_mps=[[0.7]], seed=4, device="cpu")
     assert extra["updater"].resample_count > 0
     from qinfer_tpu_torch import tomography_bench as tb
     cfg = tb.make_config("process", torch.device("cpu"), 1)

@@ -13,6 +13,7 @@ torch's; each step's normalization carries ~1e-7 of relative error); ESS
 to rtol 1e-4 (a ratio of two such sums).
 """
 
+import inspect
 import warnings
 
 import numpy as np
@@ -133,7 +134,7 @@ def test_perf_test_recovers_omega_in_both_packages(seed):
     prior = ([[0.0, 1.0]])
     _, extra = qt.perf_test(qt.AcceleratedPrecessionModel(), n,
                             qt.UniformDistribution(prior), steps,
-                            true_mps=[[0.7]], seed=seed)
+                            true_mps=[[0.7]], seed=seed, device="cpu")
     _, jextra = jax_perf_test(JaxAcceleratedPrecessionModel(), n,
                               q.UniformDistribution(prior), steps,
                               true_mps=[[0.7]], seed=seed)
@@ -152,7 +153,7 @@ def test_zero_weight_error_policy(package):
     if package == "torch":
         u = qt.SMCUpdater(qt.SimplePrecessionModel(), 50,
                           qt.UniformDistribution([[0.0, 1.0]]),
-                          zero_weight_policy="error", seed=0)
+                          zero_weight_policy="error", seed=0, device="cpu")
         eps, err = {"t": torch.tensor([0.0])}, qt.ZeroWeightError
     else:
         u = q.SMCUpdater(q.SimplePrecessionModel(), 50,
@@ -170,7 +171,7 @@ def test_zero_weight_warn_and_reset_policies():
     for policy in ("warn", "reset"):
         u = qt.SMCUpdater(qt.SimplePrecessionModel(), 50,
                           qt.UniformDistribution([[0.0, 1.0]]),
-                          zero_weight_policy=policy, seed=0)
+                          zero_weight_policy=policy, seed=0, device="cpu")
         u.update(0, {"t": torch.tensor([3.0])})
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -181,22 +182,45 @@ def test_zero_weight_warn_and_reset_policies():
         assert u.state.zero_weight_count == 1
 
 
+@pytest.mark.parametrize("entry", ["SMCUpdater", "perf_test"])
+def test_entry_points_run_on_the_card_by_default(entry):
+    """Without a ``device`` argument the updater and perf_test run on the
+    card; on a machine without one they raise and never run on the CPU."""
+    fn = getattr(qt, entry)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    args = (qt.SimplePrecessionModel(), 16,
+            qt.UniformDistribution([[0.0, 1.0]]))
+
+    def run():
+        if entry == "SMCUpdater":
+            return fn(*args)
+        return fn(*args, 2, true_mps=[[0.5]])[1]["updater"]
+
+    if torch.cuda.is_available():
+        assert run().state.locations.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run()
+
+
 def test_updater_refuses_options_outside_the_port():
     args = (qt.SimplePrecessionModel(), 10,
             qt.UniformDistribution([[0.0, 1.0]]))
+    cpu = {"device": "cpu"}
     for kw in ({"n_mcmc_moves": 2}, {"waste_free_stages": 4},
                {"sharding": object()}, {"mcmc_adapt": True},
                {"mcmc_method": "mala"}, {"compress_mcmc_record": True}):
         with pytest.raises(NotImplementedError):
-            qt.SMCUpdater(*args, **kw)
+            qt.SMCUpdater(*args, **kw, **cpu)
     with pytest.raises(TypeError):
-        qt.SMCUpdater(*args, no_such_option=1)
-    qt.SMCUpdater(*args, n_mcmc_moves=0, sharding=None)  # "off" is fine
+        qt.SMCUpdater(*args, no_such_option=1, **cpu)
+    qt.SMCUpdater(*args, n_mcmc_moves=0, sharding=None, **cpu)  # "off" is fine
 
 
 def test_updater_estimators_match_weighted_moments():
     u = qt.SMCUpdater(qt.SimplePrecessionModel(), 2000,
-                      qt.UniformDistribution([[0.0, 1.0]]), seed=3)
+                      qt.UniformDistribution([[0.0, 1.0]]), seed=3,
+                      device="cpu")
     for t, o in ((1.0, 0), (4.0, 1), (9.0, 0)):
         u.update(o, {"t": torch.tensor([t])})
     w = u.particle_weights.numpy().astype(np.float64)

@@ -303,7 +303,8 @@ def _updaters(nq=2):
     jm = jtomo.TomographyModel(jtomo.pauli_basis(nq))
     tm = ttomo.TomographyModel(ttomo.pauli_basis(nq))
     ju = JaxSMCUpdater(jm, 64, jtomo.GinibreDistribution(jm.basis))
-    tu = qt.SMCUpdater(tm, 64, ttomo.GinibreDistribution(tm.basis))
+    tu = qt.SMCUpdater(tm, 64, ttomo.GinibreDistribution(tm.basis),
+                       device="cpu")
     return ju, tu
 
 
@@ -338,7 +339,8 @@ def test_stabilizer_and_product_proposals_are_valid_effects():
     _, tu = _updaters()
     tb = tu.model.basis
     sub = qt.SMCUpdater(ttomo.TomographyModel(ttomo.pauli_basis(1)), 16,
-                        ttomo.GinibreDistribution(ttomo.pauli_basis(1)))
+                        ttomo.GinibreDistribution(ttomo.pauli_basis(1)),
+                        device="cpu")
     for h in (ttomo.RandomStabilizerStateHeuristic(tu),
               ttomo.ProductHeuristic(
                   tu, tb, [ttomo.RandomStabilizerStateHeuristic] * 2,

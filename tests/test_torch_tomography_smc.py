@@ -179,7 +179,7 @@ def test_time_dependent_perf_test_moves_the_truth_like_jax():
     _, extra_t = qt.perf_test(_DriftTorch(), 512,
                               qt.UniformDistribution([[0.0, 1.0]]), n_exp,
                               heuristic_class=_FixedTTorch,
-                              true_mps=[[0.5]], seed=2)
+                              true_mps=[[0.5]], seed=2, device="cpu")
     _, extra_j = jax_perf_test(_DriftJax(), 512,
                                q.UniformDistribution([[0.0, 1.0]]), n_exp,
                                heuristic_class=_FixedTJax,
