@@ -11,12 +11,14 @@ one line, and any failure exits non-zero without the final ``ok`` line:
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes (K1-K3 at 2²² particles, K2 also at n = 1, the
    shape the loop gives it, K3 also at the process path's n = 50 000,
-   d = 255, bit-exact on raw bit patterns; the Jacobi kernels K4-K6 on embedded
-   Ginibre/BCSZ states pushed out of the PSD cone as Liu-West proposals
-   are, and on random symmetric matrices, also against host float64
-   ``numpy.linalg.eigh`` on a subsample), with the tolerance stated;
+   d = 255, bit-exact on raw bit patterns; the Jacobi kernels K4-K6, equal
+   to their plain versions to the bit, on embedded Ginibre/BCSZ states
+   pushed out of the PSD cone as Liu-West proposals are, and on random
+   symmetric matrices, also against host float64 ``numpy.linalg.eigh`` on
+   a subsample), with the tolerance stated;
 4. engine: 20 reweight steps on the card against the same steps run by the
-   plain path on the CPU, and ``perf_test`` at 4096 particles;
+   plain path on the CPU, the device kernels of one engine reweight (K1
+   alone), and ``perf_test`` at 4096 particles;
 5. main paths, each with every kernel launch counter reset to 0 before and
    read after each run: the precession benchmark protocol (2²²
    particles, 256 adaptive steps, ESS check every step, Liu-West
@@ -24,13 +26,17 @@ one line, and any failure exits non-zero without the final ``ok`` line:
    particles, 1000 steps: K5 at every strict projection, K3 at every
    resample, K6 in the BCSZ prior draw); diffusive two-qubit state
    tomography (100 000 particles, 200 steps: K4 at every step that left
-   the cone). Each tomography run must beat the prior mean's fidelity;
+   the cone). Each tomography run must beat the prior mean's fidelity.
+   Then one more precession run records the largest |ω·t/2| that K1
+   meets, and K1 is checked on that step's particles and t;
 6. timing: each kernel's time against its plain version's and, where one
    PyTorch call computes the same function, that call's (``library_ms``:
    ``repeat_interleave`` for K3, ``torch.linalg.eigh`` for K6 where
    cuSOLVER takes the batch), beside the kernel's bound (:func:`bound`),
    after the main paths so the profiler cannot slow the loops: K1-K3 by
-   profiler device time, K4-K6 by CUDA events.
+   profiler device time, K4-K6 by CUDA events; beside them shapes and
+   designs timed for comparison (K4's input through K5's one matrix a
+   warp, K1 at the path's late-step t).
 
 Then it prints the kernels' JSON line, the card line and, last,
 ``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --kernels-only``
@@ -96,22 +102,34 @@ def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
 
-def device_ms(fn, reps=20):
-    """Device time of one ``fn()`` in ms: every kernel and copy it runs,
-    summed by the profiler over ``reps`` calls. The host's launch overhead
-    is left out; inputs that fit the 50 MB L2 stay warm across calls."""
+def device_events(fn, reps, tries=3):
+    """The profiler's device events (kernels and copies, averaged by name)
+    of ``reps`` calls of ``fn()`` after a warm-up call. On the card the
+    profiler now and then reports no device event for a session; such a
+    session is run again, up to ``tries`` times in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and not e.is_user_annotation)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.is_user_annotation]
+        if events:
+            return events
+    raise SmokeFailure(f"the profiler saw no device time in {tries} tries")
+
+
+def device_ms(fn, reps=20):
+    """Device time of one ``fn()`` in ms: every kernel and copy it runs,
+    summed by the profiler over ``reps`` calls. The host's launch overhead
+    is left out; inputs that fit the 50 MB L2 stay warm across calls."""
+    us = sum(e.self_device_time_total for e in device_events(fn, reps))
     require(us > 0, "the profiler saw no device time")
     return us / 1e3 / reps
 
@@ -196,6 +214,17 @@ def check_kernels(torch, dev):
                 require(rel <= 1e-5, f"K1 {name} rel err {rel} at t={t}, "
                                      f"outcome={outcome}")
             err = max(err, e)
+    # t and the outcome on the card (the engine's form, int32 and int64)
+    # give the by-value results to the bit, twice over
+    ref = prec.fused_precession_update(omega, w, 37.5, 1, normalize=False)
+    for odt in (torch.int32, torch.int64):
+        for _ in range(2):
+            got = prec.fused_precession_update(
+                omega, w, torch.full((1,), 37.5, device=dev),
+                torch.ones((1,), dtype=odt, device=dev), normalize=False)
+            require(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                    f"K1 with t and a {odt} outcome on the card is not "
+                    "bit-identical to the by-value call")
     # bound: ω and w read, h written; ~10 operations a particle (cosf as 1)
     timers.append(timed(
         dict(name="fused_precession_update", route="cuda",
@@ -207,7 +236,8 @@ def check_kernels(torch, dev):
                                                    normalize=False),
         no_library="no one PyTorch call fuses the reweight and its sums",
         bound_at=bound(12 * n, 10 * n)))
-    say("kernels", f"K1 fused_precession_update n={n}: max |dh|={err:.3g}")
+    say("kernels", f"K1 fused_precession_update n={n}: max |dh|={err:.3g}; "
+                   "deterministic, t and int32/int64 outcome on the card")
 
     # K2: cos² in [0, 1], atol 1e-6; at n = 1 too (the true model inside
     # simulate_experiment) and with several experiments
@@ -324,10 +354,9 @@ def check_jacobi_kernels(torch, dev):
     ``EMBEDDED_SWEEPS`` sweeps, as the models run them) and random
     symmetric matrices (6 sweeps, the kernels' default).
 
-    Tolerances. Kernel against plain: 1e-6 absolute on projections (trace
-    2) and eigenvalues, 1e-5 on eigenvectors, and 0 for K5's warp kernel;
-    the kernels round each step as the plain version's separate ops do.
-    Against float64: the JAX package's TPU accuracy figures
+    Tolerances. Kernel against plain: 0 (``torch.equal``, eigenvalues and
+    eigenvectors for K6); the kernel rounds each step as the plain
+    version's separate ops do. Against float64: the JAX package's TPU accuracy figures
     (docs/PERF_NOTES.md): projection 2.3e-6 at d = 8, 2.5e-5 at d = 16,
     2.8e-5 at d = 32; eigenvalues 1.1e-5 at d = 8 and 2.5e-5 at d = 16.
     Also: exact symmetry, trace 2 ± 1e-4 on rows with positive mass, and
@@ -367,8 +396,7 @@ def check_jacobi_kernels(torch, dev):
                 want = plain(a, sweeps=sweeps)
                 torch.cuda.synchronize()
                 e = float((got - want).abs().max())
-                # the warp kernel (K5) rounds as the plain version: exactly
-                require(e <= (0.0 if name.endswith("looped") else 1e-6),
+                require(torch.equal(got, want),
                         f"{name} d={d} differs from plain by {e}")
                 require(torch.equal(got, got.transpose(1, 2)),
                         f"{name} d={d}: output not exactly symmetric")
@@ -401,14 +429,15 @@ def check_jacobi_kernels(torch, dev):
         lambda: jac.jacobi_project_lanes_plain(a16, sweeps=s16),
         no_library=no_projection,
         bound_at=jacobi_bound(a16.shape[0], 16, s16, True)))
-    # K5's input through K4's block kernel: the design K5 had before
-    a32, s32 = inputs[32][0]
+    # K4's main-path input with one matrix a warp (K5's entry): the design
+    # that packing replaced
+    a, sweeps = inputs[8][0]
     extra.append(timed(
-        "jacobi_project_lanes (50000, 32, 32), the block kernel",
-        lambda: jac.jacobi_project_lanes(a32, sweeps=s32),
-        lambda: jac.jacobi_project_lanes_plain(a32, sweeps=s32),
+        "jacobi_project_lanes_looped (100000, 8, 8), one matrix a warp",
+        lambda a=a, s=sweeps: jac.jacobi_project_lanes_looped(a, sweeps=s),
+        lambda a=a, s=sweeps: jac.jacobi_project_lanes_plain(a, sweeps=s),
         no_library=no_projection,
-        bound_at=jacobi_bound(a32.shape[0], 32, s32, True)))
+        bound_at=jacobi_bound(a.shape[0], 8, sweeps, True)))
 
     ev_tol = {8: 1.1e-5, 16: 2.5e-5}
     err = 0.0
@@ -421,11 +450,11 @@ def check_jacobi_kernels(torch, dev):
             require(jac.jacobi_eigh_lanes.launches == before + 1,
                     "batched_jacobi_eigh_small did not launch K6")
             e = float((ev - ev_p).abs().max())
-            require(e <= 1e-6, f"K6 d={d} eigenvalues differ from plain "
-                               f"by {e}")
+            require(torch.equal(ev, ev_p), f"K6 d={d} eigenvalues differ "
+                                           f"from plain by {e}")
             ev_err = float((V - V_p).abs().max())
-            require(ev_err <= 1e-5, f"K6 d={d} eigenvectors differ from "
-                                    f"plain by {ev_err}")
+            require(torch.equal(V, V_p), f"K6 d={d} eigenvectors differ "
+                                         f"from plain by {ev_err}")
             scale = float(a.abs().max())
             recon = float(((V * ev[:, None, :]) @ V.transpose(1, 2) - a)
                           .abs().max())
@@ -455,6 +484,12 @@ def check_jacobi_kernels(torch, dev):
         lambda: jac.jacobi_eigh_lanes_plain(a8, sweeps=EMBEDDED_SWEEPS),
         **eigh_library(torch, a8),
         bound_at=jacobi_bound(a8.shape[0], 8, EMBEDDED_SWEEPS, False)))
+    extra.append(timed(
+        "jacobi_eigh_lanes (50000, 16, 16)",
+        lambda: jac.jacobi_eigh_lanes(a16, sweeps=s16),
+        lambda: jac.jacobi_eigh_lanes_plain(a16, sweeps=s16),
+        no_library="not timed at this shape",
+        bound_at=jacobi_bound(a16.shape[0], 16, s16, False)))
     return timers, extra
 
 
@@ -563,6 +598,11 @@ def check_engine(torch, dev):
     say("engine", f"20 reweight steps at n={n}: card vs CPU max |dw|="
                   f"{err:.3g}, log evidence {float(a['log_total_likelihood'])}"
                   f" vs {float(b['log_total_likelihood'])}")
+    kernels = reweight_kernels(torch, dev, model, states[dev])
+    require(len(kernels) == 1, f"one engine reweight ran {len(kernels)} "
+                               f"device kernels: {kernels}")
+    say("engine", f"device kernels of one engine reweight: {len(kernels)} "
+                  f"({kernels[0]})")
     for seed in range(3):
         _, extra = qt.perf_test(qt.AcceleratedPrecessionModel(), n,
                                 qt.UniformDistribution([[0.0, 1.0]]), 100,
@@ -570,6 +610,69 @@ def check_engine(torch, dev):
         est = float(extra["est"][-1, 0])
         require(abs(est - 0.7) < 0.05, f"perf_test seed {seed}: est {est}")
     say("engine", f"perf_test n={n}, 100 steps, 3 seeds: |est - 0.7| < 0.05")
+
+
+def reweight_kernels(torch, dev, model, state):
+    """Names of the device kernels (and copies) that the model's
+    ``fused_reweight`` runs when the engine calls it (``smc._reweight``:
+    the outcome and t on the card, int32 and float32), by the profiler,
+    after a warm-up call."""
+    outcome = torch.ones((1,), dtype=torch.int32, device=dev)
+    eps = {"t": torch.full((1,), 37.5, device=dev)}
+
+    def call():
+        return model.fused_reweight(state.weights, state.locations, outcome,
+                                    eps)
+
+    return [e.key for e in device_events(call, 1) for _ in range(e.count)]
+
+
+def late_step_k1(torch, dev):
+    """One more precession run (the protocol of ``bench.timed_run``, seed
+    1) that records, before each update, the largest |ω·t/2| K1 will meet.
+    Checks K1 against its plain version on the particles and t of the step
+    with the largest, and returns ``(its timing entry, max |ω·t/2|, t)``."""
+    from qinfer_tpu_torch import bench
+    from qinfer_tpu_torch.heuristics import PGH
+    from qinfer_tpu_torch.ops import precession as prec
+
+    updater = bench.make_updater(N_MAIN, 1, dev)
+    pgh = PGH(updater)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1001)
+    true_omega = torch.full((1, 1), bench.TRUE_OMEGA, device=dev)
+    worst = (-1.0, None, None, None)
+    for idx in range(bench.N_STEPS):
+        eps = pgh(idx)
+        t = float(eps["t"][0])
+        omega = updater.particle_locations[:, 0]
+        arg = float(omega.abs().max()) * t / 2
+        if arg > worst[0]:
+            worst = (arg, t, omega.clone(), updater.particle_weights.clone())
+        outcome = updater.model.simulate_experiment(g, true_omega, eps)
+        updater.update(outcome, eps)
+    arg, t, omega, w = worst
+    got = prec.fused_precession_update(omega, w, t, 1, normalize=False)
+    want = prec.fused_precession_update_plain(omega, w, t, 1,
+                                              normalize=False)
+    e = float((got[0] - want[0]).abs().max())
+    require(e <= 1e-6 * float(w.max()), f"K1 h differs by {e} at the "
+                                        f"path's late-step t={t}")
+    for name, a, b in zip(("norm", "ess", "mean"), got[1:], want[1:]):
+        rel = abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+        require(rel <= 1e-5, f"K1 {name} rel err {rel} at t={t}")
+    n = omega.shape[0]
+    entry = timed(
+        f"fused_precession_update n=2^22 at the path's largest |ω·t/2| = "
+        f"{arg:.6g} (t = {t:.6g})",
+        lambda: prec.fused_precession_update(omega, w, t, 1, normalize=False),
+        lambda: prec.fused_precession_update_plain(omega, w, t, 1,
+                                                   normalize=False),
+        no_library="no one PyTorch call fuses the reweight and its sums",
+        bound_at=bound(12 * n, 10 * n))
+    say("main", f"precession: largest |ω·t/2| = {arg:.6g} at t = {t:.6g}; "
+                f"K1 there: max |dh| = {e:.3g}")
+    return entry, arg, t
 
 
 def counted_wrappers():
@@ -717,11 +820,15 @@ def main(argv):
             if "registers" in ln or "spill" in ln or "Compiling" in ln]
     say("build", f"{os.path.relpath(lib_path, ROOT)} in "
                  f"{time.perf_counter() - t0:.1f} s; ptxas: {regs}")
-    # K5's d = 32 instance: registers and any local memory (stack frame)
-    k5 = log.split("warp_kernelILi32E", 1)[-1].split("Compiling", 1)[0]
-    say("build", "K5 warp kernel, d = 32: " + "; ".join(
-        ln.strip() for ln in k5.splitlines()
-        if "stack frame" in ln or "registers" in ln))
+    # the main paths' Jacobi instances (d, matrices a warp, projection):
+    # registers and any local memory (a nonzero stack frame or spill)
+    for d, g, proj, what in ((8, 4, 1, "K4"), (16, 2, 1, "K4"),
+                             (32, 1, 1, "K5"), (8, 4, 0, "K6")):
+        tag = f"jacobi_warp_kernelILi{d}ELi{g}ELb{proj}E"
+        part = log.split(tag, 1)[-1].split("Compiling", 1)[0]
+        say("build", f"{what} warp kernel, d = {d}, {g} a warp: " + "; ".join(
+            ln.strip() for ln in part.splitlines()
+            if "stack frame" in ln or "registers" in ln))
 
     timers, extra = check_kernels(torch, dev)
     jac_timers, jac_extra = check_jacobi_kernels(torch, dev)
@@ -738,6 +845,7 @@ def main(argv):
     path_launches = {mode: run_tomography_path(torch, dev, mode, n, steps,
                                                card)
                      for mode, n, steps in TOMO_PATHS}
+    extra.append(late_step_k1(torch, dev)[0])
     results = time_kernels(timers + jac_timers, extra + jac_extra)
     require("jax" not in sys.modules, "JAX was imported")
 

@@ -3,7 +3,8 @@
 :func:`state_from_numpy` takes the arrays of a ``qinfer_tpu.smc.SMCState``
 (``{f: np.asarray(getattr(state, f)) for f in state._fields}``; the PRNG
 ``key`` is ignored, since the port draws from a :class:`torch.Generator`)
-and builds the port's :class:`~qinfer_tpu_torch.smc.SMCState` on a device;
+and builds the port's :class:`~qinfer_tpu_torch.smc.SMCState` on a device
+(the card unless the caller asks for the CPU, as every entry point);
 :func:`state_to_numpy` goes back. The tests use them so that both packages
 step from the same ensemble. :func:`tomography_basis_from_numpy` builds the
 port's tomography basis from the same host arrays as a JAX basis (``data``,
@@ -15,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .config import DEFAULT_DEVICE, resolve_device
 from .smc import SMCState
 from .tomography.bases import TomographyBasis
 
@@ -37,9 +39,11 @@ _HOST_FIELDS = {
 }
 
 
-def state_from_numpy(arrays, device="cpu"):
+def state_from_numpy(arrays, device=DEFAULT_DEVICE):
     """Build an :class:`SMCState` on ``device`` from a mapping of field name
-    to array (extra keys, such as a JAX ``key``, are ignored)."""
+    to array (extra keys, such as a JAX ``key``, are ignored). Without a
+    CUDA device, pass ``device="cpu"``: the default raises there."""
+    device = resolve_device(device)
     fields = {name: torch.tensor(np.asarray(arrays[name]), dtype=dtype,
                                  device=device)
               for name, dtype in _TENSOR_FIELDS.items()}

@@ -6,57 +6,84 @@
 //   K4 qinfer_tpu/ops/jacobi.py::jacobi_project_lanes        (_make_kernel, project=True)
 //   K5 qinfer_tpu/ops/jacobi.py::jacobi_project_lanes_looped (_make_kernel_looped)
 //   K6 qinfer_tpu/ops/jacobi.py::jacobi_eigh_lanes           (_make_kernel, project=False)
-// K4 and K6 run the block kernel (jacobi_kernel, below): one matrix per d/2
-// threads in shared memory, K6 its PROJECT = false instantiation. K5, the
-// projection of the process path's 32 x 32 Choi states, runs the warp
-// kernel (jacobi_project_warp_kernel, after it), which keeps each matrix
-// in registers.
+// All three run one warp kernel (jacobi_warp_kernel, below), K6 its
+// PROJECT = false instantiation.
 //
 // What it computes, per (d, d) matrix, d even, 2 <= d <= 32: `sweeps` sweeps
 // of d - 1 round-robin rounds (the circle-method schedule of
 // _round_robin_rounds); in each round, d/2 disjoint plane rotations
 // G = [[c, s], [-s, c]] on (p, q) with the angle that zeroes a_pq (skipped
-// when |a_pq| <= 1e-30), applied as A <- G^T A G and V <- V G. K6 writes the
-// diagonal of A (the eigenvalues, unsorted) and V. K4/K5 clip the
-// eigenvalues at 0, rescale them to sum to `trace` and rebuild
-// V diag(ev) V^T, computing each upper-triangle entry once and storing it to
-// (i, j) and (j, i), so the output is exactly symmetric.
+// when |a_pq| <= 1e-30), applied as A <- G^T A G and V <- V G: the columns
+// of A and V for every pair from the round's starting pivots, then the rows
+// of A. K6 writes the diagonal of A (the eigenvalues, unsorted) and V.
+// K4/K5 clip the eigenvalues at 0, rescale them to sum to `trace` and
+// rebuild V diag(ev) V^T, computing each upper-triangle entry once and
+// storing it to (i, j) and (j, i), so the output is exactly symmetric.
 //
-// What bounds the block kernel on an H100: shared-memory traffic. Each
-// rotation loads and stores two columns and two rows of A and two columns
-// of V, 12 d words: at d = 32 and 8 sweeps 1.5e6 words a matrix, 7.6e10
-// for 50 000 matrices, against ~8.4e12 a second for the card. Device
-// memory is touched twice (one read, one write of the batch).
+// What bounds it on an H100: float32 operations, issued one warp
+// instruction at a time. A rotation of a pair takes ~15 operations for the
+// angle and 18 d for the columns of A and V and the rows of A, each rounded
+// on its own (no FMA contraction allowed): at (1e5, 8, 8) and 8 sweeps
+// 3.6e9 operations, ~0.11 ms at the card's 3.35e13 a second; at
+// (5e4, 32, 32) 1.2e11, ~3.5 ms. Device memory is touched twice (one read,
+// one write of the batch) and is never the limit.
 //
-// What the design does about it: one matrix per group of d/2 threads, with
-// A and V in shared memory (8.6 KB at d = 32; row stride d + 1, so the row
-// phase, where thread k walks rows p_k and q_k, hits 32 different banks).
-// In each round thread k owns pair k. The pairs are disjoint, so every
-// thread reads its pivots from the round's starting A, then all apply their
-// column rotations (of A and V), a barrier, then their row rotations. This
-// is the GPU form of the TPU's pair-by-pair order: the rotations of one
-// round commute, so the two differ only in rounding. The block's matrices
-// are consecutive in memory, so loads and stores are coalesced copies
-// between device and shared memory. Slots past n hold the identity, a fixed
-// point, so every thread runs the same loop and reaches every barrier.
+// What the design does about it: each matrix lives in the registers of d
+// lanes of a warp, lane r holding row r of A and row r of V (2 d floats),
+// d a template parameter. A warp packs G = floor(32 / d) matrices: lane l
+// takes matrix g = l / d and row r = l mod d, and every shuffle reads
+// inside the lane's own segment (lane g d + src), so the G matrices run
+// side by side in the same instructions. Where d does not divide 32, the
+// lanes past G d take a copy of the last row, are never read and write
+// nothing. A warp's G matrices are contiguous in memory; they go through a
+// (G d, d + 1) tile of shared memory, so that both device-memory copies are
+// coalesced and the row reads hit 32 banks. A tail warp fills its empty
+// segments with the identity, a fixed point, so every lane runs the same
+// loop. The warp needs no barrier but __syncwarp. Per round:
+//   * each lane finds its row's mate and picks a_rr and a_r,mate out of its
+//     registers (a tree of selects, so every register index is a constant);
+//     two shuffles bring the mate's diagonal and row p's a_pq; both lanes of
+//     a pair compute the same (c, s) with the same rounded operations;
+//   * column rotations: every lane takes pair k's (c, s) from a lane of the
+//     pair and rotates its two registers of columns p_k, q_k, in A and V;
+//   * row rotation: each lane takes its mate's row by d shuffles and sets
+//     a_rj = c a_rj + s' a_mate,j with s' = -s on row p and s on row q:
+//     exactly c a_pj - s a_qj and s a_pj + c a_qj.
+// Two ways to find the pairs' registers: for d <= 8 with several matrices
+// a warp, the d - 1 rounds of a sweep are unrolled, so pair k of round t
+// sits in the constant registers of columns (p_k, q_k); for larger d
+// (and K5's entry at any d) an unrolled sweep costs more registers than
+// it saves, and the registers instead hold the row's entries in the
+// ring's slot order: in round t of a sweep, register i holds column
+// ring_at(i, t), so every pair of the round sits in the same two registers,
+// (k, d - 1 - k), and the rounds run as a loop of one short body followed
+// by a shift of the registers one slot along the ring; after the d - 1
+// rounds of a sweep they are back in column order. The epilogue takes each
+// lane's eigenvalue by a shuffle per column and rebuilds row r of
+// V diag(ev) V^T with V's other rows by shuffles; an entry below the
+// diagonal is computed in the order of its mirror above it, so the output
+// is exactly symmetric.
 //
 // Numerics: every multiply, add and divide is an explicitly rounded
 // intrinsic (__fmul_rn, __fadd_rn, __fdiv_rn, __fsqrt_rn), so no product is
 // contracted into an FMA and each step rounds exactly as the plain PyTorch
-// version's separate elementwise ops do. No fast math and no flush to zero:
-// the pivot guard and the "theta^2 overflows to inf, so t = 0" rule rely on
-// IEEE denormals and infinities. Embedded Hermitian matrices have every
-// eigenvalue twice; exact degeneracy is the normal case and needs nothing
-// special (a zero pivot is skipped).
+// version's separate elementwise ops do: the kernel equals it to the bit.
+// No fast math and no flush to zero: the pivot guard and the "theta^2
+// overflows to inf, so t = 0" rule rely on IEEE denormals and infinities.
+// Embedded Hermitian matrices have every eigenvalue twice; exact
+// degeneracy is the normal case and needs nothing special (a zero pivot is
+// skipped).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-// threads per block; a block holds 64 / (d/2) matrices
-constexpr int kThreads = 64;
-constexpr int kMaxD = 32;
+constexpr int kWarpsPerBlock = 4;
+constexpr unsigned kAll = 0xffffffffu;
+// largest d whose sweep is unrolled: at d = 16 the unrolled sweep took
+// 128 registers and ran slower than the ring's rolled rounds (PERF.md)
+constexpr int kMaxUnrolledD = 8;
 
 // i-th slot of the circle-method ring in round `round`: slot 0 stays 0, the
 // others rotate right by one each round (qinfer_tpu/ops/jacobi.py:49)
@@ -64,6 +91,24 @@ __device__ __forceinline__ int ring_at(int i, int round, int d) {
   if (i == 0) return 0;
   int r = (i - 1 - round) % (d - 1);
   if (r < 0) r += d - 1;
+  return 1 + r;
+}
+
+// the row paired with `row` in round `round` (round < d - 1): row 0 sits in
+// slot 0, row i > 0 in slot 1 + (i - 1 + round) mod (d - 1); the mate is the
+// row in the opposite slot (qinfer_tpu_torch/ops/jacobi.py::round_robin_mate)
+template <int D>
+__device__ __forceinline__ int ring_mate(int row, int round) {
+  int slot = 0;
+  if (row != 0) {
+    slot = row - 1 + round;
+    if (slot >= D - 1) slot -= D - 1;
+    slot += 1;
+  }
+  const int opposite = D - 1 - slot;
+  if (opposite == 0) return 0;
+  int r = opposite - 1 - round;
+  if (r < 0) r += D - 1;
   return 1 + r;
 }
 
@@ -80,149 +125,19 @@ __device__ __forceinline__ void rotation(float app, float aqq, float apq, float*
   *s = small ? 0.0f : __fmul_rn(t, cc);
 }
 
+// (x_p, x_q) <- (c x_p - s x_q, s x_p + c x_q), each operation rounded on its own
 __device__ __forceinline__ void rotate(float* xp, float* xq, float c, float s) {
   const float p = *xp, q = *xq;
   *xp = __fsub_rn(__fmul_rn(c, p), __fmul_rn(s, q));
   *xq = __fadd_rn(__fmul_rn(s, p), __fmul_rn(c, q));
 }
 
-// a: (n, d, d) row-major. PROJECT: out (n, d, d) projections. Otherwise:
-// out (n, d, d) eigenvectors V (columns), ev_out (n, d) eigenvalues.
-template <bool PROJECT>
-__global__ void __launch_bounds__(kThreads)
-jacobi_kernel(const float* __restrict__ a, float* __restrict__ out, float* __restrict__ ev_out,
-              int64_t n, int d, int sweeps, float trace, float eps) {
-  extern __shared__ float smem[];
-  const int h = d / 2, ld = d + 1, dd = d * d;
-  const int per_block = blockDim.x / h;
-  const int mat = 2 * d * ld + d;  // A, V (padded rows) and d scaled eigenvalues
-  const int64_t m0 = (int64_t)blockIdx.x * per_block;
-  const int count = (int)(n - m0 < per_block ? n - m0 : per_block);
-
-  for (int e = threadIdx.x; e < per_block * dd; e += blockDim.x) {
-    const int m = e / dd, ij = e - m * dd, i = ij / d, j = ij - i * d;
-    float* A = smem + m * mat;
-    const float eye = i == j ? 1.0f : 0.0f;
-    A[i * ld + j] = m < count ? a[m0 * dd + e] : eye;
-    A[d * ld + i * ld + j] = eye;
-  }
-  __syncthreads();
-
-  const int slot = threadIdx.x / h, k = threadIdx.x - slot * h;
-  float* A = smem + slot * mat;
-  float* V = A + d * ld;
-  float* ev = V + d * ld;
-
-  for (int sweep = 0; sweep < sweeps; ++sweep) {
-    for (int round = 0; round < d - 1; ++round) {
-      const int x = ring_at(k, round, d), y = ring_at(d - 1 - k, round, d);
-      const int p = x < y ? x : y, q = x < y ? y : x;
-      float c, s;
-      rotation(A[p * ld + p], A[q * ld + q], A[p * ld + q], &c, &s);
-      __syncthreads();  // every pivot read before any column moves
-      for (int r = 0; r < d; ++r) {
-        rotate(&A[r * ld + p], &A[r * ld + q], c, s);
-        rotate(&V[r * ld + p], &V[r * ld + q], c, s);
-      }
-      __syncthreads();
-      for (int r = 0; r < d; ++r) rotate(&A[p * ld + r], &A[q * ld + r], c, s);
-      __syncthreads();
-    }
-  }
-
-  if (PROJECT) {
-    // clip, rescale to `trace`, rebuild V diag(ev) V^T into A's storage
-    float tr = fmaxf(A[0], 0.0f);
-    for (int i = 1; i < d; ++i) tr = __fadd_rn(tr, fmaxf(A[i * ld + i], 0.0f));
-    const float scale = __fdiv_rn(trace, fmaxf(tr, eps));
-    ev[k] = __fmul_rn(fmaxf(A[k * ld + k], 0.0f), scale);
-    ev[k + h] = __fmul_rn(fmaxf(A[(k + h) * ld + k + h], 0.0f), scale);
-    __syncthreads();
-    // thread k rebuilds rows k and d-1-k: d + 1 upper-triangle entries
-    for (int half = 0; half < 2; ++half) {
-      const int i = half == 0 ? k : d - 1 - k;
-      for (int j = i; j < d; ++j) {
-        float acc = __fmul_rn(__fmul_rn(V[i * ld], ev[0]), V[j * ld]);
-        for (int b = 1; b < d; ++b)
-          acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(V[i * ld + b], ev[b]), V[j * ld + b]));
-        A[i * ld + j] = acc;
-        A[j * ld + i] = acc;
-      }
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < count * dd; e += blockDim.x) {
-      const int m = e / dd, ij = e - m * dd, i = ij / d, j = ij - i * d;
-      out[m0 * dd + e] = smem[m * mat + i * ld + j];
-    }
-  } else {
-    __syncthreads();
-    for (int e = threadIdx.x; e < count * dd; e += blockDim.x) {
-      const int m = e / dd, ij = e - m * dd, i = ij / d, j = ij - i * d;
-      out[m0 * dd + e] = smem[m * mat + d * ld + i * ld + j];
-    }
-    for (int e = threadIdx.x; e < count * d; e += blockDim.x) {
-      const int m = e / d, i = e - m * d;
-      ev_out[m0 * d + e] = smem[m * mat + i * ld + i];
-    }
-  }
+// (u, w) <- (c u + s w, c w - s u), each operation rounded on its own
+__device__ __forceinline__ void slot_rotate(float* u, float* w, float c, float s) {
+  const float x = *u, y = *w;
+  *u = __fadd_rn(__fmul_rn(c, x), __fmul_rn(s, y));
+  *w = __fadd_rn(__fmul_rn(c, y), __fmul_rn(-s, x));
 }
-
-template <bool PROJECT>
-int launch(const float* a, float* out, float* ev_out, long long n, int d, int sweeps, float trace,
-           float eps, void* stream) {
-  if (n <= 0 || d < 2 || d > kMaxD || d % 2 != 0 || sweeps < 0) return (int)cudaErrorInvalidValue;
-  const int h = d / 2;
-  const int per_block = kThreads / h;
-  const long long blocks = (n + per_block - 1) / per_block;
-  const size_t smem = (size_t)per_block * (2 * d * (d + 1) + d) * sizeof(float);
-  jacobi_kernel<PROJECT><<<(unsigned)blocks, per_block * h, smem, (cudaStream_t)stream>>>(
-      a, out, ev_out, (int64_t)n, d, sweeps, trace, eps);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// K5: the projection with each matrix in the registers of one warp.
-//
-// What bounds it on an H100: float32 operations. At d = 32 and 8 sweeps a
-// matrix takes 8 x 31 rounds x 16 rotations x (18 d + 15) ~ 2.35e6
-// separately rounded operations (no FMA contraction allowed), 1.2e11 for
-// 50 000 matrices, ~3.5 ms at the card's 3.35e13 a second. The block
-// kernel's shared-memory traffic (above) would hold it near 9 ms.
-//
-// What the design does about it: lane r of a warp holds row r of A and row
-// r of V in registers (2 d floats), d a template parameter. The registers
-// hold the row's entries in the ring's slot order: in round t of a sweep,
-// register i holds column ring_at(i, t), so every pair of the round sits in
-// the same two registers, (k, d - 1 - k), and the rounds run as a loop of
-// one short body (unrolled rounds cost build time and registers, and ran
-// slower: PERF.md). After each round the registers shift one slot along
-// the ring (about 2 d moves per lane); after the d - 1 rounds of a sweep
-// they are back in column order. Per round:
-//   * each lane knows its row's slot; the mate's row sits in the opposite
-//     slot (a closed form mirrored by
-//     qinfer_tpu_torch/ops/jacobi.py::round_robin_mate); the lane picks
-//     a_rr and a_r,mate out of its registers (a tree of selects over the
-//     d/2 register pairs: the two always form one) and takes
-//     a_pp, a_qq and a_pq of its pair by 3 shuffles; both lanes of a pair
-//     then compute the same (c, s) with the same rounded operations;
-//   * column rotations: pair k's c and signed sine s' come from the row in
-//     slot k, with s' = -s if that row is the pair's p: lane k gathers
-//     them (2 shuffles) and every lane reads them from lane k (2 shuffles
-//     a pair); then u, w = registers k, d - 1 - k become c u + s' w and
-//     c w - s' u: exactly c x_p - s x_q and s x_p + c x_q, whichever of
-//     the two registers holds column p;
-//   * row rotation: each lane takes its mate's registers by d shuffles and
-//     sets a_rj = c a_rj + s' a_mate,j, with its own s': exactly
-//     c a_pj - s a_qj on row p and s a_pj + c a_qj on row q.
-// The warp needs no barrier but __syncwarp. Loads and stores of the
-// matrices go through a (d, d + 1) tile of shared memory per warp, so that
-// both device-memory copies are coalesced. The epilogue takes each lane's
-// eigenvalue by a shuffle per column and rebuilds row r of V diag(ev) V^T
-// with V's other rows by shuffles; an entry below the diagonal is computed
-// in the order of its mirror above it, so the output is exactly symmetric.
-// Every operation is the block kernel's, so the two agree to the bit.
-
-constexpr int kWarpsPerBlock = 4;
 
 // t[idx] for a runtime idx in [0, W), W a power of 2: one level of selects
 // per bit of idx, each a loop of constant length, so that every index is a
@@ -249,19 +164,52 @@ __device__ __forceinline__ float pick(const float (&a)[N], int idx) {
   return select_tree<kWidth>(t, idx);
 }
 
-// (u, w) <- (c u + s w, c w - s u), each operation rounded on its own
-__device__ __forceinline__ void slot_rotate(float* u, float* w, float c, float s) {
-  const float x = *u, y = *w;
-  *u = __fadd_rn(__fmul_rn(c, x), __fmul_rn(s, y));
-  *w = __fadd_rn(__fmul_rn(c, y), __fmul_rn(-s, x));
+// a_rj <- c a_rj + s' a_mate,j for every j, the mate's row by shuffles
+template <int D>
+__device__ __forceinline__ void rotate_row(float (&A)[D], int mate_lane, float c, float s_row) {
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    const float mate_aj = __shfl_sync(kAll, A[j], mate_lane);
+    A[j] = __fadd_rn(__fmul_rn(c, A[j]), __fmul_rn(s_row, mate_aj));
+  }
 }
 
-// Round t of a sweep, the registers in the round's slot order; `slot` is
-// the slot of this lane's row r.
+// Round T of a sweep, registers in column order (unrolled): pair k is
+// (p_k, q_k), constant registers. `base` is the lane of the segment's row
+// 0.
+template <int D, int T>
+__device__ __forceinline__ void round_unrolled(float (&A)[D], float (&V)[D], int r, int base) {
+  const int mate = ring_mate<D>(r, T);
+  const bool is_p = r < mate;
+  const float diag = pick(A, r), off = pick(A, mate);
+  const float mate_diag = __shfl_sync(kAll, diag, base + mate);
+  const float apq = __shfl_sync(kAll, off, base + (is_p ? r : mate));  // row p's a_pq
+  float c, s;
+  rotation(is_p ? diag : mate_diag, is_p ? mate_diag : diag, apq, &c, &s);
+#pragma unroll
+  for (int k = 0; k < D / 2; ++k) {
+    const int x = ring_at(k, T, D), y = ring_at(D - 1 - k, T, D);
+    const int p = x < y ? x : y, q = x < y ? y : x;
+    const float ck = __shfl_sync(kAll, c, base + p), sk = __shfl_sync(kAll, s, base + p);
+    rotate(&A[p], &A[q], ck, sk);
+    rotate(&V[p], &V[q], ck, sk);
+  }
+  rotate_row(A, base + mate, c, is_p ? -s : s);
+}
+
+template <int D, int T>
+__device__ __forceinline__ void sweep_unrolled(float (&A)[D], float (&V)[D], int r, int base) {
+  if constexpr (T < D - 1) {
+    round_unrolled<D, T>(A, V, r, base);
+    sweep_unrolled<D, T + 1>(A, V, r, base);
+  }
+}
+
+// Round t of a sweep, the registers in the round's slot order (a rolled
+// loop); `slot` is the slot of this lane's row r.
 template <int D>
-__device__ __forceinline__ void jacobi_round(float (&A)[D], float (&V)[D], int r, int lane, int t,
-                                             int slot) {
-  constexpr unsigned kAll = 0xffffffffu;
+__device__ __forceinline__ void round_ring(float (&A)[D], float (&V)[D], int r, int base, int t,
+                                           int slot) {
   const int opposite = D - 1 - slot;
   const int mate = ring_at(opposite, t, D);
   const int p = r < mate ? r : mate, q = r < mate ? mate : r;
@@ -277,24 +225,22 @@ __device__ __forceinline__ void jacobi_round(float (&A)[D], float (&V)[D], int r
   const float u = pick(front, k_own), w = pick(back, k_own);
   const float diag = slot < opposite ? u : w, off = slot < opposite ? w : u;
   float c, s;
-  rotation(__shfl_sync(kAll, diag, p), __shfl_sync(kAll, diag, q), __shfl_sync(kAll, off, p),
-           &c, &s);
+  rotation(__shfl_sync(kAll, diag, base + p), __shfl_sync(kAll, diag, base + q),
+           __shfl_sync(kAll, off, base + p), &c, &s);
   const float s_row = r == p ? -s : s;
-  // lane k gathers pair k's c and s' from the row in slot k; then every
-  // lane reads them from lane k, a constant
-  const int holder = ring_at(lane, t, D);
+  // pair k's c and s' (s' = -s if slot k holds column p): lane k gathers
+  // them from the row in slot k, then every lane reads them from lane k;
+  // u, w = registers k, d - 1 - k become c u + s' w and c w - s' u: exactly
+  // c x_p - s x_q and s x_p + c x_q, whichever register holds column p
+  const int holder = base + ring_at(r, t, D);
   const float c_k = __shfl_sync(kAll, c, holder), s_k = __shfl_sync(kAll, s_row, holder);
 #pragma unroll
   for (int k = 0; k < D / 2; ++k) {
-    const float ck = __shfl_sync(kAll, c_k, k), sk = __shfl_sync(kAll, s_k, k);
+    const float ck = __shfl_sync(kAll, c_k, base + k), sk = __shfl_sync(kAll, s_k, base + k);
     slot_rotate(&A[k], &A[D - 1 - k], ck, sk);
     slot_rotate(&V[k], &V[D - 1 - k], ck, sk);
   }
-#pragma unroll
-  for (int j = 0; j < D; ++j) {
-    const float mate_aj = __shfl_sync(kAll, A[j], mate);
-    A[j] = __fadd_rn(__fmul_rn(c, A[j]), __fmul_rn(s_row, mate_aj));
-  }
+  rotate_row(A, base + mate, c, s_row);
 }
 
 // the next round's slot order: slots 1 .. d - 1 move one along the ring,
@@ -309,115 +255,146 @@ __device__ __forceinline__ void shift_ring(float (&X)[D]) {
   }
 }
 
-template <int D>
+// a: (n, d, d) row-major, G matrices a warp. PROJECT: out (n, d, d)
+// projections. Otherwise: out (n, d, d) eigenvectors V (columns), ev_out
+// (n, d) eigenvalues.
+template <int D, int G, bool PROJECT>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-jacobi_project_warp_kernel(const float* __restrict__ a, float* __restrict__ out, int64_t n,
-                           int sweeps, float trace, float eps) {
+jacobi_warp_kernel(const float* __restrict__ a, float* __restrict__ out,
+                   float* __restrict__ ev_out, int64_t n, int sweeps, float trace, float eps) {
+  static_assert(G >= 1 && G * D <= 32, "G matrices of d rows fill at most a warp");
   constexpr int LD = D + 1, DD = D * D;
-  constexpr unsigned kAll = 0xffffffffu;
-  __shared__ float stage[kWarpsPerBlock][D * LD];
+  __shared__ float stage[kWarpsPerBlock][G * D * LD];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t m = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
-  if (m >= n) return;  // whole warps only: no block barrier follows
+  const int64_t m0 = ((int64_t)blockIdx.x * kWarpsPerBlock + warp) * G;
+  if (m0 >= n) return;  // whole warps only: no block barrier follows
+  const int count = n - m0 < G ? (int)(n - m0) : G;
   float* S = stage[warp];
 
-  const float* src = a + m * DD;
-  for (int e = lane; e < DD; e += 32) S[(e / D) * LD + e % D] = src[e];
+  const float* src = a + m0 * DD;
+  for (int e = lane; e < count * DD; e += 32) S[(e / D) * LD + e % D] = src[e];
   __syncwarp();
-  // lane r holds row r; lanes past d hold a copy of row d - 1 and are
-  // never read
-  const int r = lane < D ? lane : D - 1;
+  // lane l holds row r of matrix g; lanes past G d hold a copy of the
+  // last row and are never read
+  const bool real = lane < G * D;
+  const int g = real ? lane / D : G - 1, r = real ? lane % D : D - 1;
+  const int base = g * D;
   float A[D], V[D];
 #pragma unroll
   for (int j = 0; j < D; ++j) {
-    A[j] = S[r * LD + j];
-    V[j] = j == r ? 1.0f : 0.0f;
+    const float eye = j == r ? 1.0f : 0.0f;
+    A[j] = g < count ? S[(base + r) * LD + j] : eye;
+    V[j] = eye;
   }
 
-  for (int sweep = 0; sweep < sweeps; ++sweep) {
-    int slot = r;  // round 0's ring is the column order
+  if constexpr (G > 1 && D <= kMaxUnrolledD) {
 #pragma unroll 1
-    for (int t = 0; t < D - 1; ++t) {
-      jacobi_round<D>(A, V, r, lane, t, slot);
-      shift_ring<D>(A);
-      shift_ring<D>(V);
-      slot = slot == 0 ? 0 : (slot == D - 1 ? 1 : slot + 1);
+    for (int sweep = 0; sweep < sweeps; ++sweep) sweep_unrolled<D, 0>(A, V, r, base);
+  } else {
+    for (int sweep = 0; sweep < sweeps; ++sweep) {
+      int slot = r;  // round 0's ring is the column order
+#pragma unroll 1
+      for (int t = 0; t < D - 1; ++t) {
+        round_ring<D>(A, V, r, base, t, slot);
+        shift_ring<D>(A);
+        shift_ring<D>(V);
+        slot = slot == 0 ? 0 : (slot == D - 1 ? 1 : slot + 1);
+      }
     }
   }
 
-  // clip, rescale to `trace` (the clipped trace summed in index order)
-  const float own = pick(A, r);
-  float ev[D];
+  const float own = pick(A, r);  // the eigenvalue of row r
+  const bool writes = real && g < count;
+  if constexpr (PROJECT) {
+    // clip, rescale to `trace` (the clipped trace summed in index order)
+    float ev[D];
 #pragma unroll
-  for (int j = 0; j < D; ++j) ev[j] = fmaxf(__shfl_sync(kAll, own, j), 0.0f);
-  float tr = ev[0];
+    for (int j = 0; j < D; ++j) ev[j] = fmaxf(__shfl_sync(kAll, own, base + j), 0.0f);
+    float tr = ev[0];
 #pragma unroll
-  for (int j = 1; j < D; ++j) tr = __fadd_rn(tr, ev[j]);
-  const float scale = __fdiv_rn(trace, fmaxf(tr, eps));
+    for (int j = 1; j < D; ++j) tr = __fadd_rn(tr, ev[j]);
+    const float scale = __fdiv_rn(trace, fmaxf(tr, eps));
 #pragma unroll
-  for (int j = 0; j < D; ++j) ev[j] = __fmul_rn(ev[j], scale);
+    for (int j = 0; j < D; ++j) ev[j] = __fmul_rn(ev[j], scale);
 
-  // row r of V diag(ev) V^T; entry (r, j) below the diagonal as (j, r)
+    // row r of V diag(ev) V^T; entry (r, j) below the diagonal as (j, r)
 #pragma unroll 1
-  for (int j = 0; j < D; ++j) {
-    const bool upper = j >= r;
-    float acc = 0.0f;
+    for (int j = 0; j < D; ++j) {
+      const bool upper = j >= r;
+      float acc = 0.0f;
 #pragma unroll
-    for (int b = 0; b < D; ++b) {
-      const float vjb = __shfl_sync(kAll, V[b], j);
-      const float term = __fmul_rn(__fmul_rn(upper ? V[b] : vjb, ev[b]), upper ? vjb : V[b]);
-      acc = b == 0 ? term : __fadd_rn(acc, term);
+      for (int b = 0; b < D; ++b) {
+        const float vjb = __shfl_sync(kAll, V[b], base + j);
+        const float term = __fmul_rn(__fmul_rn(upper ? V[b] : vjb, ev[b]), upper ? vjb : V[b]);
+        acc = b == 0 ? term : __fadd_rn(acc, term);
+      }
+      if (writes) S[(base + r) * LD + j] = acc;
     }
-    if (lane < D) S[r * LD + j] = acc;
+  } else {
+    if (writes) {
+      ev_out[m0 * D + lane] = own;
+#pragma unroll
+      for (int j = 0; j < D; ++j) S[(base + r) * LD + j] = V[j];
+    }
   }
   __syncwarp();
-  float* dst = out + m * DD;
-  for (int e = lane; e < DD; e += 32) dst[e] = S[(e / D) * LD + e % D];
+  float* dst = out + m0 * DD;
+  for (int e = lane; e < count * DD; e += 32) dst[e] = S[(e / D) * LD + e % D];
 }
 
-template <int D>
-int launch_warp(const float* a, float* out, long long n, int sweeps, float trace, float eps,
-                void* stream) {
-  const long long blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  jacobi_project_warp_kernel<D><<<(unsigned)blocks, kWarpsPerBlock * 32, 0,
-                                  (cudaStream_t)stream>>>(a, out, (int64_t)n, sweeps, trace, eps);
+template <int D, int G, bool PROJECT>
+int launch(const float* a, float* out, float* ev_out, long long n, int sweeps, float trace,
+           float eps, void* stream) {
+  const long long warps = (n + G - 1) / G;
+  const long long blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  jacobi_warp_kernel<D, G, PROJECT><<<(unsigned)blocks, kWarpsPerBlock * 32, 0,
+                                      (cudaStream_t)stream>>>(a, out, ev_out, (int64_t)n,
+                                                              sweeps, trace, eps);
   return (int)cudaGetLastError();
+}
+
+// PACK: floor(32 / d) matrices a warp; otherwise one
+template <bool PACK, bool PROJECT>
+int dispatch(const float* a, float* out, float* ev_out, long long n, int d, int sweeps,
+             float trace, float eps, void* stream) {
+  if (n <= 0 || sweeps < 0) return (int)cudaErrorInvalidValue;
+  switch (d) {
+#define QK_CASE(D) \
+  case D:          \
+    return launch<D, PACK ? 32 / D : 1, PROJECT>(a, out, ev_out, n, sweeps, trace, eps, stream);
+    QK_CASE(2) QK_CASE(4) QK_CASE(6) QK_CASE(8) QK_CASE(10) QK_CASE(12) QK_CASE(14) QK_CASE(16)
+    QK_CASE(18) QK_CASE(20) QK_CASE(22) QK_CASE(24) QK_CASE(26) QK_CASE(28) QK_CASE(30)
+    QK_CASE(32)
+#undef QK_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// K4 / K5: out (n, d, d) = PSD projection of each a (n, d, d), rescaled to
-// trace `trace` (eps floors the clipped trace before the division).
+// K4: out (n, d, d) = PSD projection of each a (n, d, d), d even, 2 .. 32,
+// rescaled to trace `trace` (eps floors the clipped trace before the
+// division).
 int qk_jacobi_project(const float* a, float* out, long long n, int d, int sweeps, float trace,
                       float eps, void* stream) {
-  return launch<true>(a, out, nullptr, n, d, sweeps, trace, eps, stream);
+  return dispatch<true, true>(a, out, nullptr, n, d, sweeps, trace, eps, stream);
 }
 
-// K5: qk_jacobi_project's contract, by the warp kernel (d even, 2 .. 32).
+// K5: qk_jacobi_project's contract with one matrix a warp at every d (the
+// same kernel as K4's at d > 16).
 int qk_jacobi_project_warp(const float* a, float* out, long long n, int d, int sweeps,
                            float trace, float eps, void* stream) {
-  if (n <= 0 || sweeps < 0) return (int)cudaErrorInvalidValue;
-  switch (d) {
-#define QK_WARP_CASE(D) \
-  case D:               \
-    return launch_warp<D>(a, out, n, sweeps, trace, eps, stream);
-    QK_WARP_CASE(2) QK_WARP_CASE(4) QK_WARP_CASE(6) QK_WARP_CASE(8)
-    QK_WARP_CASE(10) QK_WARP_CASE(12) QK_WARP_CASE(14) QK_WARP_CASE(16)
-    QK_WARP_CASE(18) QK_WARP_CASE(20) QK_WARP_CASE(22) QK_WARP_CASE(24)
-    QK_WARP_CASE(26) QK_WARP_CASE(28) QK_WARP_CASE(30) QK_WARP_CASE(32)
-#undef QK_WARP_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<false, true>(a, out, nullptr, n, d, sweeps, trace, eps, stream);
 }
 
 // K6: ev (n, d) unsorted eigenvalues and v (n, d, d) eigenvectors (columns)
-// of each a (n, d, d), a ~= v diag(ev) v^T.
+// of each a (n, d, d), d even, 2 .. 32, a ~= v diag(ev) v^T.
 int qk_jacobi_eigh(const float* a, float* ev, float* v, long long n, int d, int sweeps,
                    void* stream) {
-  return launch<false>(a, v, ev, n, d, sweeps, 0.0f, 0.0f, stream);
+  return dispatch<true, false>(a, v, ev, n, d, sweeps, 0.0f, 0.0f, stream);
 }
 
 }  // extern "C"

@@ -46,10 +46,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "qk_fused_precession_update": (
-        [_VP, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _LL, ctypes.c_int, _VP],
+        [_VP, _LL, _VP, _VP, _F, _VP, _I, _LL, _VP, _VP, _VP, _LL, _VP],
         ctypes.c_int),
-    "qk_fused_precession_max_blocks": ([], ctypes.c_int),
-    "qk_fused_precession_threads": ([], ctypes.c_int),
+    "qk_fused_precession_scratch_words": ([], ctypes.c_int),
     "qk_precession_pr0": ([_VP, _LL, _VP, _VP, _LL, _LL, _VP], ctypes.c_int),
     "qk_streaming_resample_locations": (
         [_VP, _VP, _VP, _LL, _LL, _VP], ctypes.c_int),

@@ -12,11 +12,12 @@ at 0, rescale them to sum to ``trace`` and rebuild ``V diag(ev) Vᵀ``, with
 each upper-triangle entry stored to both (i, j) and (j, i), so the output
 is exactly symmetric.
 
-Two hand-written CUDA kernels serve them (``csrc/jacobi.cu``): K4 and K6
-run the block kernel, one matrix per d/2 threads in shared memory; K5
-runs the warp kernel, one matrix per warp in registers, lane r holding
-row r (its mate in each round from :func:`round_robin_mate`). The two
-round every step alike. The plain PyTorch versions run
+One hand-written CUDA kernel serves them (``csrc/jacobi.cu``): each
+matrix in the registers of d lanes of a warp, lane r holding row r (its
+mate in each round from :func:`round_robin_mate`). K4 and K6 pack
+⌊32/d⌋ matrices a warp; K5 runs one a warp, which is the same at its
+d = 32. The kernel rounds every step as the plain version does, so the two
+agree to the bit. The plain PyTorch versions run
 the same schedule one batched round at a time with index gathers, each
 elementwise step the same rounded operation as the kernel's. A wrapper
 uses the plain version only for tensors on the CPU; for a CUDA tensor it
@@ -39,7 +40,7 @@ __all__ = ["round_robin_rounds", "round_robin_mate", "jacobi_eigh_lanes",
            "jacobi_project_lanes", "jacobi_project_lanes_plain",
            "jacobi_project_lanes_looped", "jacobi_project_lanes_looped_plain"]
 
-#: largest d the kernel takes (its shared-memory layout)
+#: largest d the kernel takes (a row a lane of one warp)
 MAX_D = 32
 #: pivots at or below this magnitude are skipped
 PIVOT_GUARD = 1e-30
@@ -62,7 +63,7 @@ def round_robin_rounds(d):
 
 def round_robin_mate(row, r, d):
     """The row paired with ``row`` in round ``r`` of
-    :func:`round_robin_rounds`: the closed form each lane of K5's warp
+    :func:`round_robin_rounds`: the closed form each lane of the warp
     kernel evaluates for its own row (``csrc/jacobi.cu``). Row 0 sits in
     slot 0; row i > 0 in slot ``1 + (i − 1 + r) mod (d − 1)``; the mate is
     the row in the opposite slot ``d − 1 − slot``."""
@@ -194,7 +195,8 @@ def jacobi_project_lanes(a, sweeps=6, trace=2.0, eps=EPS):
     """PSD-cone projection of a batch of small symmetric matrices
     ``(n, d, d)``, d even: eigendecompose, clip the eigenvalues at 0,
     rescale them to sum to ``trace`` (``eps`` floors the clipped sum) and
-    rebuild. The tomography path's projection for embedded d ≤ 16."""
+    rebuild. The tomography path's projection for embedded d ≤ 16, ⌊32/d⌋
+    matrices a warp."""
     if not a.is_cuda:
         return jacobi_project_lanes_plain(a, sweeps, trace, eps)
     out = _project("jacobi_project_lanes", "qk_jacobi_project", a, sweeps,
@@ -206,7 +208,7 @@ def jacobi_project_lanes(a, sweeps=6, trace=2.0, eps=EPS):
 def jacobi_project_lanes_looped(a, sweeps=6, trace=2.0, eps=EPS):
     """:func:`jacobi_project_lanes`'s contract, the tomography path's
     projection for embedded 16 < d ≤ 32 (two-qubit channels' Choi
-    states), by the warp kernel (any even d ≤ 32). Counted apart from
+    states), one matrix a warp at any even d ≤ 32. Counted apart from
     it."""
     if not a.is_cuda:
         return jacobi_project_lanes_looped_plain(a, sweeps, trace, eps)

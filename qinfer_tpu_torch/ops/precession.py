@@ -16,11 +16,16 @@ Each kernel is hand-written CUDA (``csrc/precession.cu``) beside a plain
 PyTorch version of the same function. A wrapper uses the plain version
 only for tensors on the CPU; for a CUDA tensor it launches the kernel or
 raises. Each wrapper counts its launches in its ``launches`` attribute.
+
+K1 is one launch: it also computes the epilogue (norm, ESS, mean), and it
+reads ``t`` and the outcome where the engine keeps them (float32 and int32
+or int64 on the card; a Python number or a CPU tensor goes by value), so a
+``normalize=False`` call runs no other device work.
 """
 
 from __future__ import annotations
 
-import functools
+import ctypes
 
 import torch
 
@@ -41,8 +46,8 @@ def _scalar_on(x, device, dtype):
 
 
 def _finish(h, sums, normalize):
-    """The wrapper's epilogue, shared by the kernel and the plain version:
-    ``(h/Σh or h, norm=Σh, ess=(Σh)²/Σh², mean=Σhω/Σh)``."""
+    """The plain version's epilogue (the kernel computes it in its last
+    block): ``(h/Σh or h, norm=Σh, ess=(Σh)²/Σh², mean=Σhω/Σh)``."""
     norm, sum_h2, sum_hw = sums[0], sums[1], sums[2]
     safe = torch.clamp_min(norm, _SAFE)
     out_w = h / safe if normalize else h
@@ -51,13 +56,32 @@ def _finish(h, sums, normalize):
     return out_w, norm, ess, mean
 
 
-@functools.lru_cache(maxsize=None)
-def _k1_launch_limits():
-    """K1's compile-time block size and partials cap, read from the library
-    once."""
-    lib = _k.library()
-    return (lib.qk_fused_precession_threads(),
-            lib.qk_fused_precession_max_blocks())
+_K1_SCRATCH = {}
+
+
+def _k1_scratch(device, stream):
+    """K1's scratch (block partials and the last-block ticket), one zeroed
+    buffer per stream, kept across calls: each call leaves it ready for the
+    next, so a call fills nothing."""
+    key = (device, stream)
+    if key not in _K1_SCRATCH:
+        _K1_SCRATCH[key] = torch.zeros(
+            (_k.library().qk_fused_precession_scratch_words(),),
+            dtype=torch.int32, device=device)
+    return _K1_SCRATCH[key]
+
+
+def _device_scalar(x, device, dtypes, cast):
+    """``(tensor or None, value)``: a one-element tensor already on
+    ``device`` in one of ``dtypes`` is read by the kernel where it is; a
+    Python number or a CPU tensor is passed by value; a tensor on the card
+    in another dtype is cast (one small kernel)."""
+    if not isinstance(x, torch.Tensor):
+        return None, cast(x)
+    x = x.reshape(-1)[:1]
+    if x.device != device:
+        return None, cast(x.item())
+    return (x if x.dtype in dtypes else x.to(dtypes[0])), cast(0)
 
 
 def fused_precession_update_plain(omega, weights, t, outcome,
@@ -99,22 +123,24 @@ def fused_precession_update(omega, weights, t, outcome, normalize=True):
     if weights.device != omega.device:
         raise ValueError("omega and weights must be on the same device")
     dev = omega.device
-    t = _scalar_on(t, dev, torch.float32)
-    outcome = _scalar_on(outcome, dev, torch.int32)
-    lib = _k.library()
-    threads, max_blocks = _k1_launch_limits()
-    n_blocks = min(-(-n // threads), max_blocks)
+    t_dev, t_val = _device_scalar(t, dev, (torch.float32,), float)
+    o_dev, o_val = _device_scalar(outcome, dev, (torch.int32, torch.int64),
+                                  int)
     h = torch.empty((n,), dtype=torch.float32, device=dev)
-    partials = torch.empty((3 * n_blocks,), dtype=torch.float32, device=dev)
-    sums = torch.empty((3,), dtype=torch.float32, device=dev)
+    out = torch.empty((4,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        status = lib.qk_fused_precession_update(
-            _k.ptr(omega), omega.stride(0), _k.ptr(weights), _k.ptr(t),
-            _k.ptr(outcome), _k.ptr(h), _k.ptr(partials), _k.ptr(sums),
-            n, n_blocks, _k.stream_of(dev))
+        stream = _k.stream_of(dev)
+        status = _k.library().qk_fused_precession_update(
+            _k.ptr(omega), omega.stride(0), _k.ptr(weights),
+            None if t_dev is None else _k.ptr(t_dev), ctypes.c_float(t_val),
+            None if o_dev is None else _k.ptr(o_dev),
+            int(o_dev is not None and o_dev.dtype == torch.int64), o_val,
+            _k.ptr(h), _k.ptr(_k1_scratch(dev, stream.value)), _k.ptr(out),
+            n, stream)
     _k.check(status, "fused_precession_update")
     fused_precession_update.launches += 1
-    return _finish(h, sums, normalize)
+    # out: norm, ess, mean, max(norm, 1e-35)
+    return (h / out[3] if normalize else h), out[0], out[1], out[2]
 
 
 fused_precession_update.launches = 0

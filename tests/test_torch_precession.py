@@ -73,6 +73,37 @@ def test_k1_takes_strided_column_and_tensor_scalars():
                                rtol=0, atol=H_ATOL * float(w.max() / want[1]))
 
 
+@pytest.mark.parametrize("normalize", [False, True])
+def test_k1_zero_weights_match_jax(normalize):
+    """Σh = 0: norm 0, and the ESS, the mean and the normalized weights
+    through the 1e-35 floors, exactly as the JAX epilogue."""
+    omega, _ = _ensemble(17)
+    w = np.zeros(N, np.float32)
+    want = jax_fused_update(jnp.asarray(omega), jnp.asarray(w), 3.0, 0,
+                            normalize=normalize)
+    got = fused_precession_update(torch.from_numpy(omega),
+                                  torch.from_numpy(w), 3.0, 0,
+                                  normalize=normalize)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    for a, b in zip(got[1:], want[1:]):
+        assert float(a) == float(b)
+    assert float(got[1]) == 0.0
+
+
+@pytest.mark.parametrize("outcome", [0, 1])
+def test_k1_takes_an_int64_outcome_tensor(outcome):
+    omega, w = _ensemble(19 + outcome)
+    want = jax_fused_update(jnp.asarray(omega), jnp.asarray(w), 11.0,
+                            outcome)
+    got = fused_precession_update(
+        torch.from_numpy(omega), torch.from_numpy(w),
+        torch.tensor([11.0]), torch.tensor([outcome], dtype=torch.int64))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=0,
+                               atol=H_ATOL * float(w.max() / want[1]))
+    for a, b in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(float(a), float(b), rtol=SUM_RTOL)
+
+
 @pytest.mark.parametrize("t", [0.25, 9.0, 5.0e4])
 def test_k2_plain_matches_jax(t):
     omega, _ = _ensemble(11)

@@ -78,7 +78,7 @@ def test_update_steps_match_jax(path):
     js = JaxSMCState.initial(
         jnp.asarray(rng.random((n, 1), dtype=np.float32)),
         jax.random.key(0))
-    ts = state_from_numpy(_jax_arrays(js))
+    ts = state_from_numpy(_jax_arrays(js), device="cpu")
     jrs, trs = q.LiuWestResampler(), qt.LiuWestResampler()
     gen = torch.Generator().manual_seed(0)
     for k in range(20):
@@ -111,11 +111,22 @@ def test_state_round_trip_through_numpy():
     arrays = _jax_arrays(JaxSMCState.initial(
         jnp.asarray(rng.random((64, 2), dtype=np.float32)),
         jax.random.key(1)))
-    back = state_to_numpy(state_from_numpy(arrays))
+    back = state_to_numpy(state_from_numpy(arrays, device="cpu"))
     assert set(back) == set(arrays)
     for k, v in arrays.items():
         assert back[k].dtype == v.dtype, k
         np.testing.assert_array_equal(back[k], v)
+
+
+def test_state_from_numpy_defaults_to_the_card():
+    """Like every entry point, ``state_from_numpy`` builds on the card
+    unless asked for the CPU, and refuses to run on the CPU unasked."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a CUDA device")
+    arrays = _jax_arrays(JaxSMCState.initial(
+        jnp.zeros((8, 1), jnp.float32), jax.random.key(0)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        state_from_numpy(arrays)
 
 
 @pytest.mark.parametrize("interval", [0, 1, 5])

@@ -83,7 +83,7 @@ def test_process_update_steps_match_jax():
     js = JaxSMCState.initial(
         jtomo.BCSZChoiDistribution(jm.basis).sample(jax.random.key(0), n),
         jax.random.key(1))
-    ts = state_from_numpy(_jax_arrays(js))
+    ts = state_from_numpy(_jax_arrays(js), device="cpu")
     fid = _fiducials(jtomo.pauli_basis(1))
     rng = np.random.default_rng(3)
     jrs, trs = JaxLiuWest(), qt.LiuWestResampler()
@@ -138,7 +138,7 @@ def test_time_dependent_update_step_matches_jax():
     js = JaxSMCState.initial(
         jnp.asarray(rng.random((n, 1), dtype=np.float32)),
         jax.random.key(0))
-    ts = state_from_numpy(_jax_arrays(js))
+    ts = state_from_numpy(_jax_arrays(js), device="cpu")
     jm, tm = _DriftJax(), _DriftTorch()
     gen = torch.Generator().manual_seed(0)
     for k in range(15):
