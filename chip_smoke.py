@@ -26,7 +26,12 @@ one line, and any failure exits non-zero without the final ``ok`` line:
    particles, 1000 steps: K5 at every strict projection, K3 at every
    resample, K6 in the BCSZ prior draw); diffusive two-qubit state
    tomography (100 000 particles, 200 steps: K4 at every step that left
-   the cone). Each tomography run must beat the prior mean's fidelity.
+   the cone); the resample-move process path (the same 50 000 x 1000 at
+   64 shots an experiment, 8 adaptive Metropolis sweeps after each
+   resample: K3, K5 and K6 as on the process path, one move call a
+   resample, mean acceptance near its target 0.14, and each run's
+   fidelity above the single-shot process run's on its seed). Each
+   tomography run must beat the prior mean's fidelity.
    Then one more precession run records the largest |ω·t/2| that K1
    meets, and K1 is checked on that step's particles and t;
 6. timing: each kernel's time against its plain version's and, where one
@@ -54,6 +59,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 N_MAIN = 1 << 22
 #: the tomography paths: (mode, particles, steps)
 TOMO_PATHS = (("process", 50_000, 1000), ("diffusive", 100_000, 200))
+#: the resample-move path: ``tomography_bench``'s flags, and its size
+MOVES_PATH = ("--process --process-qubits 2 --shots 64 --moves 8 --adapt "
+              "--target-accept 0.14 --interval 4 --no-move-canonicalize")
+MOVES_PATH_SIZE = (50_000, 1000)
 #: rows of each Jacobi batch held against host float64
 N_F64 = 2000
 #: the process path's resample fill: (particles, parameters)
@@ -739,7 +748,7 @@ def run_tomography_path(torch, dev, mode, n, steps, card):
     cfg = tb.make_config(mode, dev, process_qubits=2)
     counted = counted_wrappers()
     tb.timed_run(cfg, n, steps, 0, dev)  # warm-up
-    walls, launches = [], {}
+    walls, launches, fids = [], {}, []
     projector = ("jacobi_project_lanes_looped" if mode == "process"
                  else "jacobi_project_lanes")
     for rep in range(tb.N_REPEATS):
@@ -748,6 +757,7 @@ def run_tomography_path(torch, dev, mode, n, steps, card):
         r = tb.timed_run(cfg, n, steps, rep + 1, dev)
         launches = {name: fn.launches for name, fn in counted.items()}
         walls.append(r["wall_s"])
+        fids.append(r["fidelity"])
         st = r["state"]
         require(bool(torch.isfinite(st.weights).all())
                 and bool(torch.isfinite(st.locations).all())
@@ -784,6 +794,87 @@ def run_tomography_path(torch, dev, mode, n, steps, card):
     rate = n * steps / best
     say("main", f"{mode}: best of 3 runs: {best:.4f} s for {n} particles x "
                 f"{steps} steps = {rate:.6g} particle-updates/s on {card}")
+    return launches, fids
+
+
+def run_moves_path(torch, dev, card, single_shot_fids):
+    """Phase 5: the resample-move path, ``tomography_bench --process
+    --process-qubits 2 --particles 50000 --steps 1000`` with
+    ``MOVES_PATH``'s flags (64-shot counts, 8 adaptive random-walk sweeps
+    after each resample toward acceptance 0.14, the ESS checked every 4th
+    step, the moves' own projection off so the resampler keeps its strict
+    one): one warm-up and three timed runs, counted. K3 must run once per
+    resample, K5 once per gated projection, K6 once (the prior draw), no
+    other path's kernel; one move call per resample, mean acceptance in
+    [0.09, 0.19], a finite adapted scale and state, and each run's
+    fidelity above the prior mean's and above the single-shot process run
+    of this call on the same seed (the same prior draw and seed of the
+    experiment stream)."""
+    from qinfer_tpu_torch import tomography_bench as tb
+
+    n, steps = MOVES_PATH_SIZE
+    opts = tb.moves_from_args(tb.parse_args(MOVES_PATH.split()))
+    cfg = tb.make_config("process", dev, process_qubits=2)
+    counted = counted_wrappers()
+    tb.timed_run(cfg, n, steps, 0, dev, opts)  # warm-up
+    walls, launches = [], {}
+    for rep in range(tb.N_REPEATS):
+        for fn in counted.values():
+            fn.launches = 0
+        r = tb.timed_run(cfg, n, steps, rep + 1, dev, opts)
+        launches = {name: fn.launches for name, fn in counted.items()}
+        walls.append(r["wall_s"])
+        st = r["state"]
+        require(bool(torch.isfinite(st.weights).all())
+                and bool(torch.isfinite(st.locations).all())
+                and bool(torch.isfinite(st.log_total_likelihood)),
+                "NaN or inf in the state after the moves path")
+        require(st.locations.shape == (n, 255),
+                f"moves path: locations of shape {tuple(st.locations.shape)}")
+        require(st.resample_count >= 1, "moves path: no resample")
+        require(launches["streaming_resample_locations"]
+                == st.resample_count,
+                f"moves path: K3 launched "
+                f"{launches['streaming_resample_locations']} times for "
+                f"{st.resample_count} resamples")
+        require(r["projections"] >= 1
+                and launches["jacobi_project_lanes_looped"]
+                == r["projections"],
+                f"moves path: K5 launched "
+                f"{launches['jacobi_project_lanes_looped']} times for "
+                f"{r['projections']} gated projections")
+        require(launches["jacobi_eigh_lanes"] == 1,
+                f"moves path: K6 launched {launches['jacobi_eigh_lanes']} "
+                "times")
+        others = {"streaming_resample_locations",
+                  "jacobi_project_lanes_looped", "jacobi_eigh_lanes"}
+        require(all(launches[k] == 0 for k in launches if k not in others),
+                f"moves path launched another path's kernel: {launches}")
+        require(r["move_calls"] == st.resample_count,
+                f"moves path: {r['move_calls']} move calls for "
+                f"{st.resample_count} resamples")
+        acc, ls = r["mean_move_acceptance"], r["final_log_scale"]
+        require(0.09 <= acc <= 0.19,
+                f"moves path: mean acceptance {acc} outside [0.09, 0.19]")
+        require(math.isfinite(ls), f"moves path: final log scale {ls}")
+        require(r["fidelity"] > r["prior_fidelity"],
+                f"moves path: fidelity {r['fidelity']} not above the prior "
+                f"mean's {r['prior_fidelity']}")
+        require(r["fidelity"] > single_shot_fids[rep],
+                f"moves path: fidelity {r['fidelity']} not above the "
+                f"single-shot process run's {single_shot_fids[rep]} on the "
+                f"same seed")
+        say("main", f"moves run {rep}: {r['wall_s']:.4f} s, fidelity "
+                    f"{r['fidelity']:.6f} (prior mean "
+                    f"{r['prior_fidelity']:.6f}, single-shot "
+                    f"{single_shot_fids[rep]:.6f}), {st.resample_count} "
+                    f"resamples, {r['move_calls']} move calls, mean "
+                    f"acceptance {acc:.6f}, final log scale {ls:.6f}, "
+                    f"{r['projections']} projections, launches {launches}")
+    best = min(walls)
+    say("main", f"moves: best of 3 runs: {best:.4f} s for {n} particles x "
+                f"{steps} steps = {n * steps / best:.6g} particle-updates/s "
+                f"on {card}")
     return launches
 
 
@@ -842,9 +933,11 @@ def main(argv):
     say("main", f"best of 3 runs: {best:.4f} s for "
                 f"{N_MAIN} particles x 256 steps = {rate:.6g} "
                 f"particle-updates/s on {card}")
-    path_launches = {mode: run_tomography_path(torch, dev, mode, n, steps,
-                                               card)
-                     for mode, n, steps in TOMO_PATHS}
+    path_launches, path_fids = {}, {}
+    for mode, n, steps in TOMO_PATHS:
+        path_launches[mode], path_fids[mode] = run_tomography_path(
+            torch, dev, mode, n, steps, card)
+    run_moves_path(torch, dev, card, path_fids["process"])
     extra.append(late_step_k1(torch, dev)[0])
     results = time_kernels(timers + jac_timers, extra + jac_extra)
     require("jax" not in sys.modules, "JAX was imported")

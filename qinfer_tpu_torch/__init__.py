@@ -1,11 +1,13 @@
 """qinfer_tpu_torch: the PyTorch + CUDA port of :mod:`qinfer_tpu`.
 
-A second package beside the JAX one, which stays the reference. Two
+A second package beside the JAX one, which stays the reference. Three
 slices are ported: the precession SMC main path (models, the uniform
 prior, the SMC updater with Liu-West resampling, the PGH heuristic,
-``perf_test`` and the benchmark) and tomography
+``perf_test`` and the benchmark), tomography
 (:mod:`qinfer_tpu_torch.tomography`: bases, priors, state, process and
-diffusive models, heuristics; ``tomography_bench``), with the hot kernels
+diffusive models, heuristics; ``tomography_bench``) and resample-move
+(``BinomialModel`` and :mod:`qinfer_tpu_torch.rejuvenation`: fixed,
+adaptive and waste-free Metropolis moves), with the hot kernels
 hand-written in CUDA for Hopper (:mod:`qinfer_tpu_torch.ops`). Module
 names mirror the JAX package. Importing the package builds no kernel and
 imports no JAX.
@@ -16,8 +18,11 @@ from ._exceptions import ResamplerWarning, ZeroWeightError, ZeroWeightWarning
 from .domains import Domain, IntegerDomain, RealDomain
 from .abstract_model import FiniteOutcomeModel, Model, Simulatable
 from .distributions import Distribution, UniformDistribution
-from .test_models import SimplePrecessionModel
+from .test_models import CoinModel, SimplePrecessionModel
+from .derived_models import BinomialModel, DerivedModel
 from .utils import (
+    binomial_pdf,
+    log_binomial_pdf,
     n_ess,
     particle_covariance_mtx,
     particle_mean,
@@ -29,7 +34,7 @@ from .smc import SMCState, SMCUpdater
 from .heuristics import PGH, Heuristic
 from .perf_testing import perf_test
 from .ops.accelerated import AcceleratedPrecessionModel
-from . import tomography
+from . import rejuvenation, tomography
 
 __all__ = [
     "EPS",
@@ -45,6 +50,11 @@ __all__ = [
     "Distribution",
     "UniformDistribution",
     "SimplePrecessionModel",
+    "CoinModel",
+    "DerivedModel",
+    "BinomialModel",
+    "binomial_pdf",
+    "log_binomial_pdf",
     "n_ess",
     "particle_covariance_mtx",
     "particle_mean",
@@ -58,5 +68,6 @@ __all__ = [
     "PGH",
     "perf_test",
     "AcceleratedPrecessionModel",
+    "rejuvenation",
     "tomography",
 ]

@@ -1,6 +1,6 @@
 """Sequential Monte Carlo updater (counterpart of :mod:`qinfer_tpu.smc`:
-``SMCState``, the reweighting paths, the update step and the core of
-``SMCUpdater``).
+``SMCState``, the reweighting paths, the update step and ``SMCUpdater``
+with its resample-move options).
 
 The port runs eagerly. One update step is: reweight (the model's fused
 hook, the max-shifted log path or the linear path) → normalize → the
@@ -10,7 +10,9 @@ the zero-weight flag and the step's log-normalization come to the host in
 ONE device→host copy per step (the JAX package keeps the gate on the
 device with a 0/1-trip ``while_loop``); everything else stays on the
 device. A resample adds a few syncs of its own (the Cholesky check and the
-early-exit validity redraw).
+early-exit validity redraw). ``SMCUpdater`` can follow each resample with
+Metropolis moves over the record of committed outcomes, or replace it by
+waste-free resample-move (:mod:`qinfer_tpu_torch.rejuvenation`).
 """
 
 from __future__ import annotations
@@ -19,12 +21,15 @@ import dataclasses
 import math
 import warnings
 
+import numpy as np
 import torch
 
 from .config import DEFAULT_DEVICE, EPS, resolve_device
 from ._exceptions import ResamplerWarning, ZeroWeightError, ZeroWeightWarning
 from .abstract_model import expparams_at, n_expparams
+from .derived_models import BinomialModel
 from .resamplers import LiuWestResampler
+from . import rejuvenation as rj
 from .utils import particle_covariance_mtx, particle_mean
 
 __all__ = ["SMCState", "SMCUpdater", "resample_interval_gate"]
@@ -189,17 +194,6 @@ _LATER_OPTIONS = {
     "debug_resampling": False,
     "track_resampling_divergence": False,
     "sharding": None,
-    "n_mcmc_moves": 0,
-    "mcmc_proposal_scale": 2.38,
-    "compress_mcmc_record": False,
-    "mcmc_canonicalize": True,
-    "waste_free_stages": 0,
-    "mcmc_method": "rwm",
-    "mcmc_adapt": False,
-    "mcmc_target_accept": None,
-    "waste_free_kernel": "rwm",
-    "waste_free_lw_seed": None,
-    "waste_free_beta": 0.3,
 }
 
 
@@ -210,7 +204,8 @@ class SMCUpdater:
     :param int n_particles: ensemble size.
     :param prior: a :class:`~qinfer_tpu_torch.distributions.Distribution`.
     :param float resample_thresh: resample when ``n_ess <= thresh * n``.
-    :param resampler: default ``LiuWestResampler(a=0.98)``.
+    :param resampler: default ``LiuWestResampler(a=0.98)``, which skips
+        its own strict projection when the moves re-project (see below).
     :param str zero_weight_policy: ``'error'``, ``'warn'`` or ``'reset'``:
         what to do when an outcome annihilates all weights.
     :param float zero_weight_thresh: "all zero" threshold (default 1e-10).
@@ -219,15 +214,52 @@ class SMCUpdater:
     :param device: where the ensemble lives; the card by default. Without
         a CUDA device, pass ``device="cpu"``: the default raises there.
 
-    Options of the JAX updater outside this port (rejuvenation moves,
-    waste-free stages, sharding, resampling diagnostics) raise
-    :class:`NotImplementedError` when set to anything but "off".
+    Resample-move (:mod:`qinfer_tpu_torch.rejuvenation`):
+
+    :param int n_mcmc_moves: Metropolis sweeps after every resample,
+        targeting prior × the likelihood of every committed outcome
+        (static models and tractable priors only).
+    :param mcmc_proposal_scale: the random walk's scale on the ensemble
+        Cholesky factor, over √d. ``None`` means the method's constant
+        (2.38 for the random walk, 1.65 for MALA); with adaptation a
+        number only seeds the initial scale.
+    :param bool compress_mcmc_record: keep the record as per-candidate
+        binomial sufficient statistics (two-outcome models and
+        ``BinomialModel`` counts): each evaluation costs O(E·n) in the
+        number of distinct experiments instead of O(T·n).
+    :param bool mcmc_canonicalize: ``model.canonicalize`` after each move
+        call (default). ``False`` skips that strict projection: accepted
+        proposals already pass ``model.are_models_valid``.
+    :param int waste_free_stages: P > 0 replaces the resample and moves by
+        waste-free resample-move when the ESS gate fires (n/P ancestors,
+        every state of a (P − 1)-step chain kept); needs
+        ``compress_mcmc_record=True`` and P | n_particles.
+    :param str waste_free_kernel: ``'rwm'`` or ``'pcn'`` chain proposals.
+    :param waste_free_lw_seed: optional Liu-West ``a`` perturbing the
+        waste-free ancestors once before chaining.
+    :param float waste_free_beta: the pCN step size.
+    :param str mcmc_method: ``'rwm'`` (random walk) or ``'mala'``
+        (Langevin; gradients by autograd).
+    :param bool mcmc_adapt: Robbins-Monro adaptation of the step size
+        toward ``mcmc_target_accept`` after every sweep; the adapted state
+        persists across updates.
+    :param float mcmc_target_accept: adaptation target (default 0.234 for
+        'rwm', 0.574 for 'mala').
+
+    Options of the JAX updater outside this port (sharding, resampling
+    diagnostics) raise :class:`NotImplementedError` when set to anything
+    but "off".
     """
 
     def __init__(self, model, n_particles, prior, resample_thresh=0.5,
                  resampler=None, zero_weight_policy="error",
                  zero_weight_thresh=None, canonicalize=True, seed=0,
-                 device=DEFAULT_DEVICE, **options):
+                 device=DEFAULT_DEVICE, n_mcmc_moves=0,
+                 mcmc_proposal_scale=None, compress_mcmc_record=False,
+                 mcmc_canonicalize=True, waste_free_stages=0,
+                 mcmc_method="rwm", mcmc_adapt=False,
+                 mcmc_target_accept=None, waste_free_kernel="rwm",
+                 waste_free_lw_seed=None, waste_free_beta=0.3, **options):
         for name, value in options.items():
             if name not in _LATER_OPTIONS:
                 raise TypeError(
@@ -243,8 +275,19 @@ class SMCUpdater:
         self.prior = prior
         self._n_particles = int(n_particles)
         self.resample_thresh = float(resample_thresh)
-        self.resampler = (resampler if resampler is not None
-                          else LiuWestResampler(a=0.98))
+        if resampler is None:
+            # Moves that re-project (mcmc_canonicalize=True) let the
+            # Liu-West resampler skip its own strict projection: one per
+            # resample-move event instead of two. At least one strict
+            # projection per event is load-bearing at high dimension: with
+            # both off, the 255-parameter process flagship collapsed from
+            # fidelity 0.98 to 0.48-0.65 (the JAX package's measurement),
+            # posterior mass leaking into the psd_tol shell.
+            resampler = LiuWestResampler(
+                a=0.98, canonicalize=not (int(n_mcmc_moves) > 0
+                                          and int(waste_free_stages) == 0
+                                          and bool(mcmc_canonicalize)))
+        self.resampler = resampler
         self.zero_weight_policy = zero_weight_policy
         self.zero_weight_thresh = (float(zero_weight_thresh)
                                    if zero_weight_thresh is not None
@@ -252,6 +295,82 @@ class SMCUpdater:
         self._canonicalize = bool(canonicalize)
         self.seed = int(seed)
         self.device = resolve_device(device)
+        self.n_mcmc_moves = int(n_mcmc_moves)
+        self.mcmc_proposal_scale = (None if mcmc_proposal_scale is None
+                                    else float(mcmc_proposal_scale))
+        self.mcmc_canonicalize = bool(mcmc_canonicalize)
+        self.mcmc_method = str(mcmc_method)
+        self.mcmc_adapt = bool(mcmc_adapt)
+        self.waste_free_stages = int(waste_free_stages)
+        self._rejuvenating = (self.n_mcmc_moves > 0
+                              or self.waste_free_stages > 0)
+        # the adaptive core: MALA, or adaptation asked for (with
+        # adapt=False it is fixed-scale MALA)
+        self._use_adaptive_kernel = (self.n_mcmc_moves > 0
+                                     and (self.mcmc_adapt
+                                          or self.mcmc_method != "rwm"))
+        self.mcmc_target_accept = None
+        self._mcmc_log_scale0 = 0.0
+        if self.mcmc_adapt or self.mcmc_method != "rwm":
+            self.mcmc_target_accept = (
+                rj.default_target_accept(self.mcmc_method)
+                if mcmc_target_accept is None else float(mcmc_target_accept))
+            if self.waste_free_stages > 0:
+                raise ValueError(
+                    "mcmc_adapt / mcmc_method='mala' apply to the "
+                    "post-resample move kernel (n_mcmc_moves), not the "
+                    "waste-free kernel")
+            # None seeds the method's optimal-scaling constant; a number
+            # (2.38 included) seeds the scale itself
+            self._mcmc_log_scale0 = rj.initial_log_scale(
+                int(model.n_modelparams), self.mcmc_method,
+                self.mcmc_proposal_scale)
+        if self._rejuvenating:
+            if bool(model.is_time_dependent):
+                raise ValueError(
+                    "n_mcmc_moves > 0 is incompatible with time-dependent "
+                    "models: past-data likelihood is not the posterior of "
+                    "parameters that moved between experiments")
+            rj.resolve_prior_log_pdf(prior)  # raises if intractable
+        self.compress_mcmc_record = bool(compress_mcmc_record)
+        self.waste_free_kernel = str(waste_free_kernel)
+        self.waste_free_lw_seed = (None if waste_free_lw_seed is None
+                                   else float(waste_free_lw_seed))
+        self.waste_free_beta = float(waste_free_beta)
+        if self.waste_free_kernel not in ("rwm", "pcn"):
+            raise ValueError(
+                f"unknown waste_free_kernel {self.waste_free_kernel!r} "
+                "(rwm | pcn)")
+        if self.waste_free_stages > 0:
+            if not self.compress_mcmc_record:
+                raise ValueError(
+                    "waste_free_stages > 0 requires "
+                    "compress_mcmc_record=True (the chain targets the "
+                    "sufficient-statistic record)")
+            if self._n_particles % self.waste_free_stages:
+                raise ValueError(
+                    f"waste_free_stages={self.waste_free_stages} must "
+                    f"divide n_particles={self._n_particles}")
+            if zero_weight_policy == "error":
+                raise ValueError(
+                    "waste_free_stages > 0 is incompatible with "
+                    "zero_weight_policy='error'")
+        # success := underlying outcome 0, counted by BinomialModel
+        self._record_is_binomial = isinstance(model, BinomialModel)
+        if self.compress_mcmc_record:
+            if not self._rejuvenating:
+                raise ValueError("compress_mcmc_record=True requires "
+                                 "n_mcmc_moves > 0 or waste_free_stages "
+                                 "> 0 (it only affects the rejuvenation "
+                                 "record)")
+            if not (self._record_is_binomial
+                    or (getattr(model, "is_n_outcomes_constant", True)
+                        and model.n_outcomes(None) == 2)):
+                raise ValueError(
+                    "compress_mcmc_record=True requires a two-outcome "
+                    "model or a BinomialModel over one (the record "
+                    "factorizes through per-candidate binomial "
+                    "sufficient statistics)")
         self.reset()
 
     # -- state management --------------------------------------------------
@@ -268,6 +387,20 @@ class SMCUpdater:
         self._state = SMCState.initial(locations)
         self.data_record = []
         self.normalization_record = []
+        # the rejuvenation record: every experiment (full record), or a
+        # host-side pool of distinct experiments with success and trial
+        # totals (compressed record)
+        self._eps_record = []
+        self._n_record = 0
+        self._pool_index = {}
+        self._pool_eps = []
+        self._pool_succ = []
+        self._pool_trials = []
+        # the adaptive kernel's Robbins-Monro state, read from the device
+        # once per move call
+        self._mcmc_log_scale = float(self._mcmc_log_scale0)
+        self._mcmc_adapt_t = 0
+        self.mcmc_acceptance_record = []
 
     @property
     def state(self):
@@ -327,7 +460,8 @@ class SMCUpdater:
 
     def update(self, outcome, expparams, check_for_resample=True):
         """Condition the posterior on one observed outcome (applying the
-        zero-weight policy and the ESS-triggered resample)."""
+        zero-weight policy, the ESS-triggered resample and, when
+        configured, the resample-move)."""
         eps = self.model.canonicalize_expparams(expparams, self.device)
         if n_expparams(eps) != 1:
             eps = expparams_at(eps, 0)
@@ -337,7 +471,8 @@ class SMCUpdater:
         new_state, log_norm, was_zero = _update_step(
             self.model, self.resampler, prev_state, outcome_t, eps,
             self.resample_thresh, self.zero_weight_thresh, self.generator,
-            check_resample=bool(check_for_resample))
+            check_resample=(bool(check_for_resample)
+                            and self.waste_free_stages == 0))
         if was_zero:
             self._handle_zero_weight()
         if new_state.just_resampled:
@@ -347,6 +482,23 @@ class SMCUpdater:
         self._state = new_state
         self.data_record.append(outcome)
         self.normalization_record.append(math.exp(log_norm))
+        if self._rejuvenating:
+            self._n_record += 1
+            if self.compress_mcmc_record:
+                # the sufficient statistics alone: storing every
+                # experiment would defeat the record's compression
+                self._accumulate_record(outcome, eps)
+            else:
+                self._eps_record.append(eps)
+            if self.waste_free_stages > 0:
+                # a caller that suppresses the resample gets no waste-free
+                # resample-move either
+                if check_for_resample and (
+                        self.n_ess <= self.resample_thresh
+                        * self._n_particles):
+                    self._waste_free_now()
+            elif new_state.just_resampled:
+                self._rejuvenate_now()
 
     def _warn_resampler_fallback(self, n_slots):
         if n_slots > 0:
@@ -363,6 +515,134 @@ class SMCUpdater:
         if self.zero_weight_policy == "warn":
             warnings.warn(msg + " — weights were reset", ZeroWeightWarning)
         # 'reset': the step already substituted uniform weights
+
+    # -- resample-move rejuvenation ----------------------------------------
+
+    def _pool_row_and_increment(self, outcome_val, eps_np):
+        """The sufficient-statistic conventions, in one place: success :=
+        underlying outcome 0 (``BinomialModel``'s convention), a Bernoulli
+        bit is a binomial of one trial, and ``n_meas`` rides in the trial
+        totals, not in the pool identity. Takes host values, creates the
+        pool row if new and returns ``(row, success_inc, trial_inc)``."""
+        eps_np = dict(eps_np)
+        n_meas = 1
+        if self._record_is_binomial:
+            n_meas = int(eps_np.pop("n_meas").ravel()[0])
+        key_bytes = b"\x00".join(
+            k.encode() + b"=" + np.ascontiguousarray(eps_np[k]).tobytes()
+            for k in sorted(eps_np))
+        row = self._pool_index.get(key_bytes)
+        if row is None:
+            row = len(self._pool_eps)
+            self._pool_index[key_bytes] = row
+            self._pool_eps.append(eps_np)
+            self._pool_succ.append(0.0)
+            self._pool_trials.append(0.0)
+        o = float(outcome_val)
+        s_inc = o if self._record_is_binomial else (1.0 if o == 0 else 0.0)
+        return row, s_inc, float(n_meas)
+
+    def _accumulate_record(self, outcome, eps):
+        """Fold one committed (outcome, experiment) into the per-candidate
+        totals (one device→host copy of the experiment)."""
+        eps_np = {k: v.detach().cpu().numpy() for k, v in eps.items()}
+        o = torch.as_tensor(outcome).reshape(-1)[0].item()
+        row, s_inc, t_inc = self._pool_row_and_increment(o, eps_np)
+        self._pool_succ[row] += s_inc
+        self._pool_trials[row] += t_inc
+
+    def _pool_arrays(self):
+        """The compressed record on the device: the pool's experiments
+        padded to a power of two ≥ 8 (padding rows repeat row 0 with zero
+        trials, which add exactly 0), and int32 success and trial totals
+        (float32 stops counting at 2²⁴; the likelihood casts at use)."""
+        E = len(self._pool_eps)
+        Ep = max(8, 1 << (E - 1).bit_length()) if E > 1 else 8
+        pad = Ep - E
+        pool_eps = {
+            k: torch.as_tensor(np.concatenate(
+                [np.atleast_1d(e[k]) for e in self._pool_eps]
+                + ([np.repeat(np.atleast_1d(self._pool_eps[0][k]), pad,
+                              axis=0)] if pad else []), axis=0),
+                device=self.device)
+            for k in self._pool_eps[0]
+        }
+        trials = np.asarray(self._pool_trials, np.float64)
+        if trials.size and float(trials.max()) > 2.0 ** 30:
+            raise OverflowError(
+                "per-candidate trial totals exceed 2^30; the int32 "
+                "device representation of the compressed rejuvenation "
+                "record would overflow (split the record across "
+                "candidates or disable compress_mcmc_record)")
+        succ = np.pad(np.asarray(self._pool_succ, np.int64), (0, pad))
+        trials = np.pad(trials.astype(np.int64), (0, pad))
+        return (pool_eps,
+                torch.as_tensor(succ.astype(np.int32), device=self.device),
+                torch.as_tensor(trials.astype(np.int32), device=self.device))
+
+    def _record_arrays(self):
+        """The full record on the device: ``(outcomes (T,), expparams with
+        leading axis T)``."""
+        outs = torch.stack([
+            torch.as_tensor(o, device=self.device).reshape(-1)[0]
+            for o in self.data_record])
+        eps_rec = {k: torch.cat([e[k] for e in self._eps_record])
+                   for k in self._eps_record[0]}
+        return outs, eps_rec
+
+    def _waste_free_now(self):
+        """Waste-free resample-move in place of the resample
+        (:func:`~qinfer_tpu_torch.rejuvenation.
+        waste_free_rejuvenate_binomial`)."""
+        pool_eps, succ, trials = self._pool_arrays()
+        st = self._state
+        w, x, _ = rj.waste_free_rejuvenate_binomial(
+            self.model, self.prior, self.generator, st.weights,
+            st.locations, succ, trials, pool_eps, self.waste_free_stages,
+            proposal_scale=self._fixed_proposal_scale(),
+            canonicalize=self.mcmc_canonicalize,
+            kernel=self.waste_free_kernel,
+            lw_seed_a=self.waste_free_lw_seed, beta=self.waste_free_beta)
+        self._state = dataclasses.replace(
+            st, weights=w, locations=x, just_resampled=True,
+            resample_count=st.resample_count + 1)
+
+    def _fixed_proposal_scale(self):
+        return (2.38 if self.mcmc_proposal_scale is None
+                else self.mcmc_proposal_scale)
+
+    def _rejuvenate_now(self):
+        """``n_mcmc_moves`` Metropolis sweeps targeting prior × record
+        likelihood, after a resample. The adapted scale and the mean
+        acceptance come to the host once per call."""
+        if self.compress_mcmc_record:
+            pool_eps, succ, trials = self._pool_arrays()
+            record = (succ, trials, pool_eps)
+            fixed = rj.mcmc_rejuvenate_binomial
+            adaptive = rj.mcmc_rejuvenate_binomial_adaptive
+        else:
+            outs, eps_rec = self._record_arrays()
+            record = (outs, eps_rec, torch.ones(
+                outs.shape[0], dtype=torch.bool, device=self.device))
+            fixed, adaptive = rj.mcmc_rejuvenate, rj.mcmc_rejuvenate_adaptive
+        st = self._state
+        if self._use_adaptive_kernel:
+            x, acc, ls, t = adaptive(
+                self.model, self.prior, self.generator, st.locations,
+                *record, self.n_mcmc_moves, self._mcmc_log_scale,
+                self._mcmc_adapt_t, method=self.mcmc_method,
+                target_accept=self.mcmc_target_accept,
+                canonicalize=self.mcmc_canonicalize, adapt=self.mcmc_adapt)
+            self._mcmc_log_scale = float(ls)
+            self._mcmc_adapt_t = int(t)
+        else:
+            x, acc = fixed(
+                self.model, self.prior, self.generator, st.locations,
+                *record, self.n_mcmc_moves,
+                proposal_scale=self._fixed_proposal_scale(),
+                canonicalize=self.mcmc_canonicalize)
+        self.mcmc_acceptance_record.append(float(acc))
+        self._state = dataclasses.replace(st, locations=x)
 
     # -- estimators --------------------------------------------------------
 

@@ -76,6 +76,14 @@ class GinibreDistribution(DensityOperatorDistribution):
         super().__init__(basis)
         self.rank = int(rank) if rank is not None else self.dim
 
+    @property
+    def is_flat_on_support(self):
+        """Full-rank Ginibre states are the Hilbert-Schmidt measure,
+        uniform over the PSD cone in the basis coordinates (density
+        ∝ det(ρ)^{rank − dim}); lower ranks live on the cone's boundary
+        and are no rejuvenation target."""
+        return self.rank == self.dim
+
     def _sample_embedded(self, generator, n):
         d, r = self.dim, self.rank
         A = _normal(generator, (n, d, r))
@@ -120,6 +128,13 @@ class BCSZChoiDistribution(DensityOperatorDistribution):
                 "BCSZChoiDistribution needs a basis on a d² space")
         self.hilbert_dim = hd
         self.rank = int(rank) if rank is not None else d2
+
+    @property
+    def is_flat_on_support(self):
+        """Full Kraus-rank BCSZ channels are the flat measure on the Choi
+        section of CPTP maps (Bruzda, Cappellini, Sommers and Życzkowski
+        2009), so the density is constant on its support."""
+        return self.rank == self.dim
 
     def _sample_embedded(self, generator, n):
         d = self.hilbert_dim

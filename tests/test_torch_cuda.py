@@ -320,3 +320,256 @@ def test_jacobi_wrappers_refuse_what_the_kernel_does_not_take(_card):
             jac.jacobi_eigh_lanes(bad)
         with pytest.raises(ValueError):
             jac.jacobi_project_lanes_looped(bad)
+
+
+# -- the resample-move slice on the card --------------------------------------
+#
+# No new kernel: the binomial pmf, the record likelihood and the moves are
+# PyTorch ops. These tests hold the card's results to the CPU's on the
+# same inputs (the draws made once on the CPU and fed to both), and check
+# that the sweeps keep the adapted scale on the device.
+
+
+def _binomial_grid():
+    import numpy as np
+
+    N = np.repeat(np.asarray([1, 16, 64, 1000, 10_000], np.float32), 400)
+    rng = np.random.default_rng(0)
+    n = np.floor(rng.random(N.size) * (N + 1)).astype(np.float32)
+    p = rng.random(N.size).astype(np.float32)
+    p[::9], p[::11], p[::13] = 0.0, 1.0, 1e-35
+    return [torch.from_numpy(a) for a in (N, n, p)]
+
+
+def test_log_binomial_pdf_on_the_card_matches_the_cpu(_card):
+    from qinfer_tpu_torch.utils import log_binomial_pdf
+
+    N, n, p = _binomial_grid()
+    want = log_binomial_pdf(N, n, p)
+    got = log_binomial_pdf(N.cuda(), n.cuda(), p.cuda()).cpu()
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    ok = torch.isfinite(want)
+    # lgamma to ~1 ulp of lgamma(N + 1) in each: 4 ulp of 8.2e4 at most
+    ulp = 4 * torch.lgamma(N + 1.0).clamp_min(1.0) * 2.0 ** -23
+    assert bool(((got - want).abs()[ok]
+                 <= 1e-5 * want.abs()[ok] + ulp[ok]).all())
+
+
+def _process_record(nq, n, seed):
+    """A binomial record on the full (prep, meas) pool of ``nq``-qubit
+    process tomography, with particles of the BCSZ prior drawn on the
+    CPU: ``(model, prior, x, succ, trials, pool)``, all on the CPU."""
+    import itertools
+    from functools import reduce
+
+    import numpy as np
+
+    from qinfer_tpu_torch import BinomialModel
+    from qinfer_tpu_torch import tomography as tomo
+
+    b1, b2 = tomo.pauli_basis(nq), tomo.pauli_basis(2 * nq)
+    model = BinomialModel(tomo.ProcessTomographyModel(b2, b1),
+                          n_meas_max=64)
+    prior = tomo.BCSZChoiDistribution(b2)
+    x = prior.sample(torch.Generator().manual_seed(seed), n)
+    kets1 = np.asarray([[1, 0], [0, 1], [2 ** -0.5, 2 ** -0.5],
+                        [2 ** -0.5, 1j * 2 ** -0.5]], np.complex64)
+    fid = torch.stack([b1.state_to_modelparams(np.outer(k, k.conj()))
+                       for k in (reduce(np.kron, c) for c in
+                                 itertools.product(kets1, repeat=nq))])
+    f = fid.shape[0]
+    pool = {"prep": fid.repeat_interleave(f, dim=0),
+            "meas": fid.repeat(f, 1)}
+    rng = np.random.default_rng(seed)
+    trials = torch.tensor(rng.integers(0, 5, f * f) * 64, dtype=torch.int32)
+    succ = torch.tensor((rng.random(f * f) * trials.numpy()).astype(
+        np.int32))
+    return model, prior, x, succ, trials, pool
+
+
+def _to(d, dev):
+    return {k: v.to(dev) for k, v in d.items()}
+
+
+@pytest.mark.parametrize("nq, n", [(1, 20_000), (2, 5_000)])
+def test_binomial_record_log_likelihood_on_the_card_matches_the_cpu(_card,
+                                                                    nq, n):
+    from qinfer_tpu_torch.rejuvenation import binomial_record_log_likelihood
+
+    model, _, x, succ, trials, pool = _process_record(nq, n, 3)
+    two = model.underlying_model
+    want = binomial_record_log_likelihood(two, x, succ, trials, pool)
+    got = binomial_record_log_likelihood(
+        two, x.cuda(), succ.cuda(), trials.cuda(), _to(pool, "cuda")).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+class _FedDraws:
+    """Stands in for the move kernels' draws: hands out pre-drawn normals
+    and log-uniforms, moved to the device of the call, in order."""
+
+    def __init__(self, seed):
+        self.g = torch.Generator().manual_seed(seed)
+        self.drawn, self.i = [], 0
+
+    def replay(self):
+        self.i = 0
+
+    def _next(self, kind, shape, like):
+        if self.i == len(self.drawn):
+            self.drawn.append(torch.randn(shape, generator=self.g)
+                              if kind == "normal" else
+                              torch.log(torch.rand(shape, generator=self.g)))
+        t = self.drawn[self.i]
+        self.i += 1
+        return t.to(device=like.device, dtype=like.dtype)
+
+    def normal(self, generator, like, shape=None):
+        return self._next("normal", like.shape if shape is None else shape,
+                          like)
+
+    def log_uniform(self, generator, n, like):
+        return self._next("log_uniform", (n,), like)
+
+
+@pytest.mark.parametrize("method", ["rwm", "mala"])
+def test_adaptive_move_on_the_card_matches_the_cpu(_card, method,
+                                                   monkeypatch):
+    from qinfer_tpu_torch import rejuvenation as rj
+
+    model, prior, x, succ, trials, pool = _process_record(1, 4096, 5)
+    draws = _FedDraws(7)
+    monkeypatch.setattr(rj, "_normal", draws.normal)
+    monkeypatch.setattr(rj, "_log_uniform", draws.log_uniform)
+    ls0 = rj.initial_log_scale(x.shape[1], method)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        draws.replay()
+        outs[dev] = rj.mcmc_rejuvenate_binomial_adaptive(
+            model, prior, None, x.to(dev), succ.to(dev), trials.to(dev),
+            _to(pool, dev), 4, ls0, 0, method=method, canonicalize=False)
+    (xc, ac, lc, tc), (xg, ag, lg, tg) = outs["cpu"], outs["cuda"]
+    assert xg.is_cuda and lg.is_cuda and tg.is_cuda
+    assert int(tg) == int(tc) == 4
+    # an accept decision at a float boundary may flip: nearly every row
+    # agrees to float32 tolerance, and the tallies follow
+    same = ((xg.cpu() - xc).abs() <= 1e-4).all(dim=1).float().mean()
+    assert float(same) > 0.99
+    assert abs(float(ag) - float(ac)) < 0.01
+    assert abs(float(lg) - float(lc)) < 0.01
+
+
+def test_moves_without_canonicalize_leave_every_particle_valid(_card):
+    """Two-qubit process tomography at 255 parameters: every accepted
+    proposal passed ``are_models_valid``, so without the final projection
+    the whole ensemble still passes."""
+    from qinfer_tpu_torch import rejuvenation as rj
+
+    model, prior, _, succ, trials, pool = _process_record(2, 8, 9)
+    g = _gen(9)
+    x = prior.sample(g, 20_000)
+    assert bool(model.are_models_valid(x).all())
+    x2, acc, ls, _ = rj.mcmc_rejuvenate_binomial_adaptive(
+        model, prior, g, x, succ.cuda(), trials.cuda(), _to(pool, "cuda"),
+        8, rj.initial_log_scale(255, "rwm"), 0, method="rwm",
+        target_accept=0.14, canonicalize=False)
+    assert 0.0 < float(acc) < 1.0 and not torch.equal(x2, x)
+    assert bool(model.are_models_valid(x2).all())
+
+
+def _coin_sweep_inputs(method):
+    from qinfer_tpu_torch import BinomialModel, CoinModel, UniformDistribution
+    from qinfer_tpu_torch import rejuvenation as rj
+
+    model = BinomialModel(CoinModel(), n_meas_max=20)
+    prior = UniformDistribution([[0.0, 1.0]])
+    g = _gen(1)
+    x = prior.sample(g, 8192)
+    succ = torch.tensor([140], device="cuda")
+    trials = torch.tensor([200], device="cuda")
+    pool = {"exp_num": torch.zeros(1, dtype=torch.int32, device="cuda")}
+    return rj, model, prior, g, x, succ, trials, pool
+
+
+@pytest.mark.parametrize("method", ["rwm", "mala"])
+def test_adaptive_sweeps_never_wait_for_the_card(_card, method):
+    """The sweep loop reads nothing back: under ``set_sync_debug_mode
+    ("error")`` the loop of a coin's adaptive move runs (its validity check
+    is elementwise), and a whole move call makes as many synchronizing
+    calls at 2 sweeps as at 12 (its one Cholesky check, its setup)."""
+    import warnings
+
+    rj, model, prior, g, x, succ, trials, pool = _coin_sweep_inputs(method)
+    two = model.underlying_model
+    log_pdf = rj.resolve_prior_log_pdf(prior)
+
+    def posterior_lp(xx):
+        return rj.binomial_record_log_likelihood(two, xx, succ, trials,
+                                                 pool) + log_pdf(xx)
+
+    chol = rj._ensemble_chol(x)
+    cap = 20.0
+
+    def lp_and_grad(xx):
+        return rj._lp_and_whitened_grad(posterior_lp, xx, chol, cap)
+
+    lp, u = lp_and_grad(x) if method == "mala" else (posterior_lp(x), None)
+    ls = torch.tensor(rj.initial_log_scale(1, method), device="cuda")
+    t = torch.zeros((), dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = rj._adaptive_sweeps(model, g, x, lp, u, chol, posterior_lp,
+                                  lp_and_grad, 6, ls, t, method,
+                                  rj.default_target_accept(method), True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out[2].is_cuda and int(out[3]) == 6
+
+    def syncs(n_moves):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                rj.mcmc_rejuvenate_binomial_adaptive(
+                    model, prior, g, x, succ, trials, pool, n_moves, ls, t,
+                    method=method)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return sum("synchroniz" in str(c.message) for c in caught)
+
+    assert syncs(2) == syncs(12)
+
+
+def test_binomial_accelerated_model_never_launches_k1(_card):
+    """``BinomialModel(AcceleratedPrecessionModel)`` reweights by the
+    log-binomial: an engine step launches K2 (its Pr(0)) and never K1,
+    and its weights follow the same steps on the CPU. Tolerance: 1e-5 of
+    the largest weight plus 1e-4 of each weight: the card's ``cosf`` and
+    the CPU's ``cos`` may round Pr(0) an ulp apart, and a count of 16
+    shots multiplies that in the log by up to n/p + (N − n)/(1 − p)."""
+    from qinfer_tpu_torch import AcceleratedPrecessionModel, BinomialModel
+    from qinfer_tpu_torch.resamplers import LiuWestResampler
+    from qinfer_tpu_torch.smc import SMCState, _update_step
+
+    model = BinomialModel(AcceleratedPrecessionModel(), n_meas_max=16)
+    x = torch.rand((100_000, 1), generator=torch.Generator().manual_seed(3))
+    states = {d: SMCState.initial(x.to(d)) for d in ("cpu", "cuda")}
+    k1, k2 = (prec.fused_precession_update.launches,
+              prec.precession_pr0.launches)
+    for k, count in enumerate((11, 3, 16, 0, 9)):
+        for d in states:
+            states[d], _, _ = _update_step(
+                model, LiuWestResampler(), states[d],
+                torch.tensor([count], device=d),
+                {"t": torch.tensor([0.5 + k], device=d),
+                 "n_meas": torch.tensor([16], device=d)}, 0.5, 1e-10,
+                torch.Generator(device=d), check_resample=False)
+    torch.cuda.synchronize()
+    assert prec.fused_precession_update.launches == k1
+    assert prec.precession_pr0.launches == k2 + 5
+    w_cpu, w_gpu = states["cpu"].weights, states["cuda"].weights.cpu()
+    torch.testing.assert_close(w_gpu, w_cpu, rtol=1e-4,
+                               atol=1e-5 * float(w_cpu.max()))
