@@ -30,8 +30,20 @@ one line, and any failure exits non-zero without the final ``ok`` line:
    64 shots an experiment, 8 adaptive Metropolis sweeps after each
    resample: K3, K5 and K6 as on the process path, one move call a
    resample, mean acceptance near its target 0.14, and each run's
-   fidelity above the single-shot process run's on its seed). Each
-   tomography run must beat the prior mean's fidelity.
+   fidelity above the single-shot process run's on its seed); the EIG
+   flagship path (the resample-move path with ``--eig --eig-policy
+   egreedy --eig-interval 4`` at 2000 steps: each experiment picked from
+   the 256-pair pool by its expected information gain, the pool rescored
+   every 4th step and after each resample; K3, K5 and K6 as on the
+   resample-move path, and the rescore count of the JAX benchmark's rule
+   on the run's own resample steps). Each tomography run must beat the
+   prior mean's fidelity.
+   Then BASELINE config 5 (``expdesign_bench``: 10⁷ particles, 32 steps,
+   16 candidates scored by information gain, unchunked and 4 at a time):
+   the posterior mean within 0.05 of 0.7, K3 once per resample and bit-
+   exact on one of the run's resamples, chunked and unchunked scores
+   equal on the final state, and the peak memory of a chunked scoring
+   call (64 at a time) the same at 256 and at 1024 candidates.
    Then one more precession run records the largest |ω·t/2| that K1
    meets, and K1 is checked on that step's particles and t;
 6. timing: each kernel's time against its plain version's and, where one
@@ -63,6 +75,18 @@ TOMO_PATHS = (("process", 50_000, 1000), ("diffusive", 100_000, 200))
 MOVES_PATH = ("--process --process-qubits 2 --shots 64 --moves 8 --adapt "
               "--target-accept 0.14 --interval 4 --no-move-canonicalize")
 MOVES_PATH_SIZE = (50_000, 1000)
+#: the EIG flagship path: the resample-move path with experiment design,
+#: at twice its steps. Up to 4000 steps the amortized design trails the
+#: uniform pick (in the JAX package too: its CPU run at 20 000 x 1000,
+#: 0.5279 against 0.6284), and at 1000 steps its fidelity clears the
+#: prior mean's by as little as 0.02; at 2000 it reads 0.59-0.66
+EIG_PATH = MOVES_PATH + " --eig --eig-policy egreedy --eig-interval 4"
+EIG_PATH_SIZE = (50_000, 2000)
+#: BASELINE config 5: (particles, steps, candidates), the chunk of its
+#: second run, and the chunked scoring call's chunk and pool sizes
+CONFIG5 = (10_000_000, 32, 16)
+CONFIG5_CHUNK = 4
+CONFIG5_MEMORY = (64, (256, 1024))
 #: rows of each Jacobi batch held against host float64
 N_F64 = 2000
 #: the process path's resample fill: (particles, parameters)
@@ -797,26 +821,34 @@ def run_tomography_path(torch, dev, mode, n, steps, card):
     return launches, fids
 
 
-def run_moves_path(torch, dev, card, single_shot_fids):
+def run_moves_path(torch, dev, card, baseline_fids=None, flags=MOVES_PATH,
+                   size=MOVES_PATH_SIZE, label="moves",
+                   baseline="single-shot process"):
     """Phase 5: the resample-move path, ``tomography_bench --process
-    --process-qubits 2 --particles 50000 --steps 1000`` with
-    ``MOVES_PATH``'s flags (64-shot counts, 8 adaptive random-walk sweeps
-    after each resample toward acceptance 0.14, the ESS checked every 4th
-    step, the moves' own projection off so the resampler keeps its strict
-    one): one warm-up and three timed runs, counted. K3 must run once per
-    resample, K5 once per gated projection, K6 once (the prior draw), no
-    other path's kernel; one move call per resample, mean acceptance in
-    [0.09, 0.19], a finite adapted scale and state, and each run's
-    fidelity above the prior mean's and above the single-shot process run
-    of this call on the same seed (the same prior draw and seed of the
-    experiment stream)."""
+    --process-qubits 2`` at ``size`` (particles, steps) with ``flags``
+    (``MOVES_PATH``: 64-shot counts, 8 adaptive random-walk sweeps after
+    each resample toward acceptance 0.14, the ESS checked every 4th step,
+    the moves' own projection off so the resampler keeps its strict one;
+    ``EIG_PATH`` adds the experiment design): one warm-up and three timed
+    runs, counted. K3 must run once per resample, K5 once per gated
+    projection, K6 once (the prior draw), no other path's kernel; one move
+    call per resample, mean acceptance in [0.09, 0.19], a finite adapted
+    scale and state, and each run's fidelity above the prior mean's and,
+    when given, above ``baseline_fids``, the ``baseline`` run of this call
+    on the same seed (the same prior draw and seed of the experiment
+    stream). With the design, the
+    pool's rescore count must be the JAX benchmark's rule (every
+    ``--eig-interval``-th step and the step after a resample) applied to
+    the run's own resample steps. Returns the last run's launches."""
     from qinfer_tpu_torch import tomography_bench as tb
 
-    n, steps = MOVES_PATH_SIZE
-    opts = tb.moves_from_args(tb.parse_args(MOVES_PATH.split()))
-    cfg = tb.make_config("process", dev, process_qubits=2)
+    n, steps = size
+    args = tb.parse_args(flags.split())
+    opts = tb.moves_from_args(args)
+    design = tb.design_from_args(args)
+    cfg = tb.make_config("process", dev, process_qubits=2, design=design)
     counted = counted_wrappers()
-    tb.timed_run(cfg, n, steps, 0, dev, opts)  # warm-up
+    tb.timed_run(cfg, n, tb.WARMUP_STEPS, 0, dev, opts)  # warm-up
     walls, launches = [], {}
     for rep in range(tb.N_REPEATS):
         for fn in counted.values():
@@ -828,54 +860,191 @@ def run_moves_path(torch, dev, card, single_shot_fids):
         require(bool(torch.isfinite(st.weights).all())
                 and bool(torch.isfinite(st.locations).all())
                 and bool(torch.isfinite(st.log_total_likelihood)),
-                "NaN or inf in the state after the moves path")
-        require(st.locations.shape == (n, 255),
-                f"moves path: locations of shape {tuple(st.locations.shape)}")
-        require(st.resample_count >= 1, "moves path: no resample")
+                f"NaN or inf in the state after the {label} path")
+        require(st.locations.shape == (n, 255), f"{label} path: locations "
+                f"of shape {tuple(st.locations.shape)}")
+        require(st.resample_count >= 1, f"{label} path: no resample")
         require(launches["streaming_resample_locations"]
                 == st.resample_count,
-                f"moves path: K3 launched "
+                f"{label} path: K3 launched "
                 f"{launches['streaming_resample_locations']} times for "
                 f"{st.resample_count} resamples")
         require(r["projections"] >= 1
                 and launches["jacobi_project_lanes_looped"]
                 == r["projections"],
-                f"moves path: K5 launched "
+                f"{label} path: K5 launched "
                 f"{launches['jacobi_project_lanes_looped']} times for "
                 f"{r['projections']} gated projections")
         require(launches["jacobi_eigh_lanes"] == 1,
-                f"moves path: K6 launched {launches['jacobi_eigh_lanes']} "
+                f"{label} path: K6 launched {launches['jacobi_eigh_lanes']} "
                 "times")
         others = {"streaming_resample_locations",
                   "jacobi_project_lanes_looped", "jacobi_eigh_lanes"}
         require(all(launches[k] == 0 for k in launches if k not in others),
-                f"moves path launched another path's kernel: {launches}")
+                f"{label} path launched another path's kernel: {launches}")
         require(r["move_calls"] == st.resample_count,
-                f"moves path: {r['move_calls']} move calls for "
+                f"{label} path: {r['move_calls']} move calls for "
                 f"{st.resample_count} resamples")
         acc, ls = r["mean_move_acceptance"], r["final_log_scale"]
         require(0.09 <= acc <= 0.19,
-                f"moves path: mean acceptance {acc} outside [0.09, 0.19]")
-        require(math.isfinite(ls), f"moves path: final log scale {ls}")
+                f"{label} path: mean acceptance {acc} outside [0.09, 0.19]")
+        require(math.isfinite(ls), f"{label} path: final log scale {ls}")
         require(r["fidelity"] > r["prior_fidelity"],
-                f"moves path: fidelity {r['fidelity']} not above the prior "
+                f"{label} path: fidelity {r['fidelity']} not above the prior "
                 f"mean's {r['prior_fidelity']}")
-        require(r["fidelity"] > single_shot_fids[rep],
-                f"moves path: fidelity {r['fidelity']} not above the "
-                f"single-shot process run's {single_shot_fids[rep]} on the "
-                f"same seed")
-        say("main", f"moves run {rep}: {r['wall_s']:.4f} s, fidelity "
+        beside = ""
+        if baseline_fids is not None:
+            require(r["fidelity"] > baseline_fids[rep],
+                    f"{label} path: fidelity {r['fidelity']} not above the "
+                    f"{baseline} run's {baseline_fids[rep]} on the same "
+                    f"seed")
+            beside = f", {baseline} {baseline_fids[rep]:.6f}"
+        rescores = ""
+        if design is not None:
+            after = {i + 1 for i in r["resample_steps"]}
+            want = sum(1 for i in range(steps)
+                       if i % design.interval == 0 or i in after)
+            require(r["n_rescores"] == want,
+                    f"{label} path: {r['n_rescores']} rescores, the JAX "
+                    f"rule gives {want}")
+            rescores = f", {r['n_rescores']} rescores"
+        say("main", f"{label} run {rep}: {r['wall_s']:.4f} s, fidelity "
                     f"{r['fidelity']:.6f} (prior mean "
-                    f"{r['prior_fidelity']:.6f}, single-shot "
-                    f"{single_shot_fids[rep]:.6f}), {st.resample_count} "
-                    f"resamples, {r['move_calls']} move calls, mean "
+                    f"{r['prior_fidelity']:.6f}{beside}), {st.resample_count} "
+                    f"resamples{rescores}, {r['move_calls']} move calls, mean "
                     f"acceptance {acc:.6f}, final log scale {ls:.6f}, "
                     f"{r['projections']} projections, launches {launches}")
     best = min(walls)
-    say("main", f"moves: best of 3 runs: {best:.4f} s for {n} particles x "
+    say("main", f"{label}: best of 3 runs: {best:.4f} s for {n} particles x "
                 f"{steps} steps = {n * steps / best:.6g} particle-updates/s "
                 f"on {card}")
     return launches
+
+
+def _recording_resampler(torch):
+    """A ``LiuWestResampler(a=0.98)`` that counts its calls and keeps the
+    inputs of its first one: the generator's state, the weights and the
+    particles."""
+    from qinfer_tpu_torch.resamplers import LiuWestResampler
+
+    class Recording(LiuWestResampler):
+        calls = 0
+        first = None
+
+        def call_with_diagnostics(self, model, generator, w, x):
+            self.calls += 1
+            if self.first is None:
+                self.first = (generator.get_state(), w.clone(), x.clone())
+            return super().call_with_diagnostics(model, generator, w, x)
+
+    return Recording(a=0.98)
+
+
+def run_config5(torch, dev, card):
+    """Phase 5: BASELINE config 5, ``expdesign_bench`` at ``CONFIG5``,
+    unchunked and ``CONFIG5_CHUNK`` candidates at a time, counted over its
+    warm-up and timed run: K3 once per resample and no other kernel; the
+    posterior mean within 0.05 of 0.7. K3 is held bit-exact on the first
+    resample's own inputs (its uniform offset replayed from the recorded
+    generator state). On the unchunked run's final state: the chunked and
+    unchunked information gains agree to √n float32 ulps of a nat (each
+    is a difference of two sums over n particles, grouped otherwise when
+    the candidate axis is narrower), and
+    ``SMCUpdater.expected_information_gain`` with
+    ``candidate_chunk=64`` peaks at the same memory (within 10 %) for
+    256 and for 1024 candidates. Returns K3's timing entry at the
+    recorded resample's shape."""
+    from qinfer_tpu_torch import expdesign_bench as eb
+    from qinfer_tpu_torch.ops import streaming_resample as sr
+    from qinfer_tpu_torch.resamplers import counting_multiplicities_from_u
+    from qinfer_tpu_torch.smc import (SMCUpdater, _expected_information_gain,
+                                      score_candidates)
+    from qinfer_tpu_torch import SimplePrecessionModel, UniformDistribution
+
+    n, steps, n_cand = CONFIG5
+    counted = counted_wrappers()
+    finals = {}
+    for chunk in (0, CONFIG5_CHUNK):
+        rs = _recording_resampler(torch)
+        for fn in counted.values():
+            fn.launches = 0
+        r = eb.run_bench(n, steps, n_cand, chunk, dev, resampler=rs)
+        launches = {name: fn.launches for name, fn in counted.items()}
+        est = r["posterior_mean"]
+        require(abs(est - 0.7) < 0.05,
+                f"config 5 (chunk {chunk}): posterior mean {est}")
+        require(launches["streaming_resample_locations"] == rs.calls >= 1,
+                f"config 5: K3 launched "
+                f"{launches['streaming_resample_locations']} times for "
+                f"{rs.calls} resamples")
+        require(all(v == 0 for k, v in launches.items()
+                    if k != "streaming_resample_locations"),
+                f"config 5 launched another path's kernel: {launches}")
+        say("main", f"config 5 chunk {chunk}: {r['wall_s']:.4f} s for {n} "
+                    f"particles x {steps} steps x {n_cand} candidates = "
+                    f"{r['particle_updates_per_s']:.6g} particle-updates/s, "
+                    f"{r['candidate_scores_per_s']:.6g} candidate-scores/s, "
+                    f"posterior mean {est:.6f}, {r['resamples']} resamples "
+                    f"(timed run), peak memory {r['peak_memory_bytes']} B, "
+                    f"launches over warm-up and timed run {launches} on "
+                    f"{card}")
+        finals[chunk] = (r["state"], rs.first)
+
+    state, (gen_state, w, x) = finals[0]
+    g = torch.Generator(device=dev)
+    g.set_state(gen_state)
+    u = torch.rand((), generator=g, device=dev)
+    m, starts = counting_multiplicities_from_u(u, w, n)
+    require(int(m.sum()) == n, "config 5: K3 counts do not sum to n")
+    got = sr.streaming_resample_locations(m, starts, x)
+    want = sr.streaming_resample_locations_plain(m, starts, x)
+    require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+            "config 5: K3 not bit-exact on the run's first resample")
+
+    model = SimplePrecessionModel()
+    cand = {"t": eb.candidate_spread(n_cand, dev) * 20.0}
+    scores = [score_candidates(_expected_information_gain, model,
+                               state.weights, state.locations, cand,
+                               candidate_chunk=c)
+              for c in (None, CONFIG5_CHUNK)]
+    diff = float((scores[0] - scores[1]).abs().max())
+    tol = 2.0 ** -24 * math.sqrt(n)
+    require(diff <= tol, f"config 5: chunked and unchunked scores differ by "
+                         f"{diff} (tolerance {tol:.3g})")
+
+    chunk, pools = CONFIG5_MEMORY
+    updater = SMCUpdater(model, n, UniformDistribution([[0.0, 1.0]]),
+                         device=dev)
+    updater.state = state
+    peaks = []
+    for n_pool in pools:
+        pool = {"t": torch.linspace(0.5, 60.0, n_pool, device=dev)}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ig = updater.expected_information_gain(pool, candidate_chunk=chunk)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        require(ig.shape == (n_pool,) and bool(torch.isfinite(ig).all()),
+                f"config 5: information gain of {n_pool} candidates")
+    require(abs(peaks[1] - peaks[0]) <= 0.1 * peaks[0],
+            f"config 5: chunked scoring peaks at {peaks[0]} B for "
+            f"{pools[0]} candidates and {peaks[1]} B for {pools[1]}")
+    table = 2 * n * chunk * 4
+    say("main", f"config 5: K3 bit-exact on the first resample "
+                f"(n = {n}, d = 1); chunked vs unchunked scores max |Δ| "
+                f"{diff:.3g} (tolerance {tol:.3g}); candidate_chunk={chunk} "
+                f"peaks "
+                f"{peaks[0]} B at {pools[0]} candidates and {peaks[1]} B at "
+                f"{pools[1]} ({peaks[0] / table:.3f} and "
+                f"{peaks[1] / table:.3f} (2, n, chunk) float32 tables)")
+    return timed(
+        f"streaming_resample_locations n={n}, d=1 (config 5's first "
+        f"resample)",
+        lambda: sr.streaming_resample_locations(m, starts, x),
+        lambda: sr.streaming_resample_locations_plain(m, starts, x),
+        library=lambda: torch.repeat_interleave(x, m, dim=0, output_size=n),
+        bound_at=bound(4 * n + 8 * n, 0))
 
 
 def main(argv):
@@ -938,6 +1107,9 @@ def main(argv):
         path_launches[mode], path_fids[mode] = run_tomography_path(
             torch, dev, mode, n, steps, card)
     run_moves_path(torch, dev, card, path_fids["process"])
+    run_moves_path(torch, dev, card, flags=EIG_PATH, size=EIG_PATH_SIZE,
+                   label="eig flagship")
+    extra.append(run_config5(torch, dev, card))
     extra.append(late_step_k1(torch, dev)[0])
     results = time_kernels(timers + jac_timers, extra + jac_extra)
     require("jax" not in sys.modules, "JAX was imported")

@@ -1,13 +1,16 @@
 """qinfer_tpu_torch: the PyTorch + CUDA port of :mod:`qinfer_tpu`.
 
-A second package beside the JAX one, which stays the reference. Three
+A second package beside the JAX one, which stays the reference. Four
 slices are ported: the precession SMC main path (models, the uniform
 prior, the SMC updater with Liu-West resampling, the PGH heuristic,
 ``perf_test`` and the benchmark), tomography
 (:mod:`qinfer_tpu_torch.tomography`: bases, priors, state, process and
-diffusive models, heuristics; ``tomography_bench``) and resample-move
+diffusive models, heuristics; ``tomography_bench``), resample-move
 (``BinomialModel`` and :mod:`qinfer_tpu_torch.rejuvenation`: fixed,
-adaptive and waste-free Metropolis moves), with the hot kernels
+adaptive and waste-free Metropolis moves) and experiment design
+(:mod:`qinfer_tpu_torch.expdesign`: information gain and Bayes risk
+scores, selection policies, the pool and field designers;
+``expdesign_bench``), with the hot kernels
 hand-written in CUDA for Hopper (:mod:`qinfer_tpu_torch.ops`). Module
 names mirror the JAX package. Importing the package builds no kernel and
 imports no JAX.
@@ -32,6 +35,10 @@ from .utils import (
 from .resamplers import LiuWestResampler, Resampler
 from .smc import SMCState, SMCUpdater
 from .heuristics import PGH, Heuristic
+from .finite_difference import FiniteDifference
+from .expdesign import (ExperimentDesigner, OptimizationAlgorithms,
+                        PoolDesigner, design_from_candidates,
+                        select_candidate)
 from .perf_testing import perf_test
 from .ops.accelerated import AcceleratedPrecessionModel
 from . import rejuvenation, tomography
@@ -66,6 +73,12 @@ __all__ = [
     "SMCUpdater",
     "Heuristic",
     "PGH",
+    "FiniteDifference",
+    "ExperimentDesigner",
+    "OptimizationAlgorithms",
+    "PoolDesigner",
+    "design_from_candidates",
+    "select_candidate",
     "perf_test",
     "AcceleratedPrecessionModel",
     "rejuvenation",

@@ -159,6 +159,13 @@ class Simulatable:
         self._sim_count = 0
         self._call_count = 0
 
+    def experiment_cost(self, expparams):
+        """Cost of each experiment: (n_expparams,), one each by default
+        (override for time-weighted designs)."""
+        eps = self.canonicalize_expparams(expparams)
+        dev = next(iter(eps.values())).device if eps else None
+        return torch.ones((n_expparams(eps),), device=dev)
+
     def canonicalize_expparams(self, expparams, device=None):
         """Coerce expparams (dict / structured array / scalar) to a dict of
         tensors on ``device`` (left where they are when None). An EMPTY dict
@@ -197,6 +204,15 @@ class Model(Simulatable):
             if "log_likelihood" in vars(klass):
                 return klass is not Model
         return False
+
+    def outcome_mask(self, expparams):
+        """(n_outcomes, n_expparams) boolean mask of the outcome grid's
+        real slots for each experiment: all true unless a model pads its
+        grid (``BinomialModel`` with per-experiment ``n_meas``)."""
+        eps = self.canonicalize_expparams(expparams)
+        dev = next(iter(eps.values())).device if eps else None
+        return torch.ones((self.n_outcomes(eps), n_expparams(eps)),
+                          dtype=torch.bool, device=dev)
 
     @property
     def Q(self):

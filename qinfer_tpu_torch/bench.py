@@ -110,6 +110,19 @@ def profiled_run(n_particles, n_steps, seed, device, path):
         lambda: run_loop(updater, n_steps, seed + 1000), device, path)
 
 
+def parse_refusing(parser, argv, not_ported):
+    """``parser.parse_args(argv)``, taking the JAX benchmark's flags named
+    in ``not_ported`` (with or without a value) only to refuse them."""
+    for flag in not_ported:
+        parser.add_argument("--" + flag.replace("_", "-"), nargs="?",
+                            const=True, default=None, help="not ported yet")
+    args = parser.parse_args(argv)
+    for flag in not_ported:
+        if getattr(args, flag) is not None:
+            raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet")
+    return args
+
+
 def card_label():
     """``name, power.limit`` of the first card as nvidia-smi reports it."""
     try:

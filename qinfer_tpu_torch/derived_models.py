@@ -79,6 +79,12 @@ class DerivedModel(Model):
     def outcomes(self, expparams=None, device=None):
         return self.underlying_model.outcomes(expparams, device=device)
 
+    def outcome_mask(self, expparams):
+        return self.underlying_model.outcome_mask(expparams)
+
+    def experiment_cost(self, expparams):
+        return self.underlying_model.experiment_cost(expparams)
+
     def are_models_valid(self, modelparams):
         return self.underlying_model.are_models_valid(modelparams)
 

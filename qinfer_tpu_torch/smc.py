@@ -32,7 +32,8 @@ from .resamplers import LiuWestResampler
 from . import rejuvenation as rj
 from .utils import particle_covariance_mtx, particle_mean
 
-__all__ = ["SMCState", "SMCUpdater", "resample_interval_gate"]
+__all__ = ["SMCState", "SMCUpdater", "resample_interval_gate",
+           "score_candidates"]
 
 
 @dataclasses.dataclass
@@ -127,6 +128,106 @@ def _reweight(model, weights, locations, outcome, eps):
     hyp = weights * ell
     norm = torch.sum(hyp)
     return hyp, norm, torch.log(torch.clamp_min(norm, EPS))
+
+
+def _likelihood_grid(model, outcomes, locations, eps):
+    """The scorers' likelihood table (n_out, n, n_cand). Models whose
+    likelihood draws Monte-Carlo noise (``wants_likelihood_key``) need a
+    fresh stream per design call, which this port does not have yet."""
+    if getattr(model, "wants_likelihood_key", False):
+        raise NotImplementedError(
+            f"{type(model).__name__} draws its likelihood from a random "
+            "stream; design scoring for such models is not ported yet")
+    return model.likelihood(outcomes, locations, eps)
+
+
+def _hypothetical_update(model, weights, locations, outcomes, eps):
+    """Posterior weights for every (outcome, experiment) hypothesis:
+    ``(norm_weights (n_out, n_eps, n), L (n_out, n, n_eps), norms
+    (n_out, n_eps))``."""
+    L = _likelihood_grid(model, outcomes, locations, eps)
+    hyp = L * weights[None, :, None]
+    norms = torch.sum(hyp, dim=1)
+    norm_w = hyp.movedim(1, 2) / torch.clamp_min(norms, EPS)[..., None]
+    return norm_w, L, norms
+
+
+def _bayes_risk(model, weights, locations, outcomes, mask, eps, Q):
+    """Expected posterior Q-weighted variance, marginalized over outcomes:
+    risk(e) = Σ_o Pr(o|e) · Σ_j Q_j Var[θ_j | o, e]; padded outcome slots
+    (``mask`` 0) contribute nothing.
+
+    Two products of the likelihood table against the weighted raw moments,
+    ``N = L·w`` and ``M = L·(w ⊙ [x, x²])``, normalized at the small
+    (n_out, n_cand, 2d) output: no per-particle posterior is built."""
+    L = _likelihood_grid(model, outcomes, locations, eps)
+    L = L * mask[:, None, :]
+    d = locations.shape[1]
+    xaug = torch.cat([locations, locations * locations], dim=1)
+    N = torch.matmul(weights, L)  # (n_out, n_cand): Pr(outcome | e)
+    M = torch.matmul(L.transpose(1, 2), weights[:, None] * xaug)
+    del L
+    inv_n = 1.0 / torch.clamp_min(N, EPS)[..., None]
+    mu = M[..., :d] * inv_n
+    x2 = M[..., d:] * inv_n
+    var = torch.clamp_min(x2 - mu * mu, 0.0)
+    q = Q.to(device=var.device, dtype=var.dtype, non_blocking=True)
+    risk_per_outcome = var @ q  # (n_out, n_cand)
+    return torch.sum(N * risk_per_outcome, dim=0)
+
+
+def _expected_information_gain(model, weights, locations, outcomes, mask,
+                               eps):
+    """Mutual information (nats) between the outcome and the parameters
+    for each candidate: IG(e) = H[Pr(o|e)] − E_θ H[Pr(o|θ,e)], with padded
+    outcome slots (``mask`` 0) contributing nothing. Holds at most two
+    (n_out, n, n_cand) tables at once beside the model's own."""
+    L = _likelihood_grid(model, outcomes, locations, eps)
+    L = L * mask[:, None, :]
+    marg = torch.matmul(weights, L)  # (n_out, n_cand): Pr(o | e)
+    h_marg = -torch.sum(marg * torch.log(torch.clamp_min(marg, EPS)), dim=0)
+    # L·log L in place on the clamped copy
+    ll = torch.clamp_min(L, EPS).log_().mul_(L)
+    del L
+    h_cond_per_theta = -torch.sum(ll, dim=0)  # (n, n_cand)
+    del ll
+    return h_marg - weights @ h_cond_per_theta
+
+
+def _outcome_grid(model, eps, weights):
+    """The model's outcome grid for ``eps`` on the weights' device, and its
+    mask (n_out, n_eps) in the weights' dtype."""
+    outcomes = model.outcomes(eps, device=weights.device)
+    return outcomes, model.outcome_mask(eps).to(weights.dtype)
+
+
+def score_candidates(score_fn, model, weights, locations, eps, extra_args=(),
+                     candidate_chunk=None):
+    """Score the candidate experiments ``eps`` (a canonical dict on the
+    particles' device) with ``score_fn(model, w, x, outcomes, mask, eps,
+    *extra_args)``, optionally ``candidate_chunk`` at a time: the pool is
+    padded to a multiple of the chunk by repeating its last candidate, each
+    chunk is scored with its own outcome mask, and the result is cut back
+    to the pool. The likelihood table is (n_out, n, n_cand), so a chunk
+    bounds the peak memory at a few (n_out, n, chunk) tables whatever the
+    pool's size. No device→host copy."""
+    n_e = n_expparams(eps)
+    outcomes, mask = _outcome_grid(model, eps, weights)
+    if candidate_chunk is None or n_e <= candidate_chunk:
+        return score_fn(model, weights, locations, outcomes, mask, eps,
+                        *extra_args)
+    c = int(candidate_chunk)
+    n_pad = (-n_e) % c
+    if n_pad:
+        eps = {k: torch.cat([v, v[-1:].expand((n_pad,) + v.shape[1:])])
+               for k, v in eps.items()}
+    scores = []
+    for start in range(0, n_e + n_pad, c):
+        ec = {k: v[start:start + c] for k, v in eps.items()}
+        scores.append(score_fn(model, weights, locations, outcomes,
+                               model.outcome_mask(ec).to(weights.dtype), ec,
+                               *extra_args))
+    return torch.cat(scores)[:n_e]
 
 
 def resample_interval_gate(idx, resample_interval):
@@ -643,6 +744,56 @@ class SMCUpdater:
                 canonicalize=self.mcmc_canonicalize)
         self.mcmc_acceptance_record.append(float(acc))
         self._state = dataclasses.replace(st, locations=x)
+
+    # -- adaptivity scores -------------------------------------------------
+
+    def hypothetical_update(self, outcomes, expparams,
+                            return_likelihood=False,
+                            return_normalization=False):
+        """Posterior weights that each (outcome, experiment) pair would
+        give, without committing: ``(n_outcomes, n_expparams, n_particles)``,
+        with the likelihood table ``(n_outcomes, n_particles, n_expparams)``
+        and the normalizations ``(n_outcomes, n_expparams)`` on request."""
+        eps = self.model.canonicalize_expparams(expparams, self.device)
+        outcomes = torch.as_tensor(outcomes, device=self.device)
+        if outcomes.ndim == 0:
+            outcomes = outcomes.reshape(1)
+        self.model._bump("_call_count", outcomes.shape[0] * self.n_particles
+                         * n_expparams(eps))
+        norm_w, L, norms = _hypothetical_update(
+            self.model, self._state.weights, self._state.locations, outcomes,
+            eps)
+        out = (norm_w,)
+        if return_likelihood:
+            out = out + (L,)
+        if return_normalization:
+            out = out + (norms,)
+        return out[0] if len(out) == 1 else out
+
+    def _score_candidates(self, score_fn, expparams, extra_args,
+                          candidate_chunk):
+        """The batched design scorers' common path (:func:`score_candidates`):
+        one score per candidate experiment, on the device, with no
+        device→host copy."""
+        eps = self.model.canonicalize_expparams(expparams, self.device)
+        self.model._bump("_call_count", self.model.n_outcomes(eps)
+                         * self.n_particles * n_expparams(eps))
+        return score_candidates(score_fn, self.model, self._state.weights,
+                                self._state.locations, eps, extra_args,
+                                candidate_chunk)
+
+    def bayes_risk(self, expparams, candidate_chunk=None):
+        """Expected posterior Q-loss of each candidate experiment;
+        ``candidate_chunk`` bounds the peak memory of a large pool."""
+        return self._score_candidates(_bayes_risk, expparams, (self.model.Q,),
+                                      candidate_chunk)
+
+    def expected_information_gain(self, expparams, candidate_chunk=None):
+        """Expected information gain (mutual information, nats) of each
+        candidate experiment; ``candidate_chunk`` bounds the peak memory of
+        a large pool."""
+        return self._score_candidates(_expected_information_gain, expparams,
+                                      (), candidate_chunk)
 
     # -- estimators --------------------------------------------------------
 

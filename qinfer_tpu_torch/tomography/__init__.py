@@ -22,6 +22,7 @@ from .expdesign import (
     RandomPauliHeuristic,
     RandomStabilizerStateHeuristic,
     ProductHeuristic,
+    BestOfKMetaheuristic,
 )
 
 __all__ = [
@@ -39,4 +40,5 @@ __all__ = [
     "RandomPauliHeuristic",
     "RandomStabilizerStateHeuristic",
     "ProductHeuristic",
+    "BestOfKMetaheuristic",
 ]

@@ -1,6 +1,7 @@
 """Measurement heuristics for tomography (counterpart of
 :mod:`qinfer_tpu.tomography.expdesign`: ``RandomPauliHeuristic``,
-``RandomStabilizerStateHeuristic`` and ``ProductHeuristic``).
+``RandomStabilizerStateHeuristic``, ``ProductHeuristic`` and
+``BestOfKMetaheuristic``).
 
 Measurement effects are coordinate vectors in the model's basis (the
 ``'meas'`` expparams field), precomputed on the host in NumPy; a proposal
@@ -12,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..abstract_model import _field
 from ..heuristics import Heuristic
 from .bases import pauli_basis
 
@@ -19,6 +21,7 @@ __all__ = [
     "RandomPauliHeuristic",
     "RandomStabilizerStateHeuristic",
     "ProductHeuristic",
+    "BestOfKMetaheuristic",
 ]
 
 
@@ -164,3 +167,53 @@ class ProductHeuristic(_FieldsHeuristic):
             sub = h.propose(generator, weights, locations, idx_exp)
             coords = torch.kron(coords, sub["meas"][0].to(locations.device))
         return self._with_fields(coords[None, :], locations.device)
+
+
+class BestOfKMetaheuristic(Heuristic):
+    """Draw ``k`` candidate measurements from a base heuristic (from the
+    updater's generator) and keep the one with the best score, maximum
+    information gain or minimum Bayes risk, all ``k`` scored in ONE engine
+    call.
+
+    :param base_heuristic: a heuristic with the pure ``propose`` form.
+    :param str score: ``'information_gain'`` or ``'bayes_risk'``.
+    :param other_fields: fields added to every candidate (one value, or
+        one per candidate).
+    """
+
+    def __init__(self, updater, base_heuristic, k=8,
+                 score="information_gain", other_fields=None):
+        super().__init__(updater)
+        self.base_heuristic = base_heuristic
+        self.k = int(k)
+        if score not in ("information_gain", "bayes_risk"):
+            raise ValueError("score must be information_gain or bayes_risk")
+        self.score = score
+        self.other_fields = dict(other_fields or {})
+
+    def __call__(self, idx_exp=0):
+        u = self._updater
+        st = u.state
+        cands = [self.base_heuristic.propose(u.generator, st.weights,
+                                             st.locations, idx_exp)
+                 for _ in range(self.k)]
+        # every field the base proposes (a base bound to a time-dependent
+        # model proposes more than 'meas')
+        eps = {f: torch.cat([torch.atleast_1d(c[f]) for c in cands])
+               for f in cands[0]}
+        for name, val in self.other_fields.items():
+            val = _field(val, u.device)
+            eps[name] = (val.expand((self.k,) + val.shape[1:])
+                         if val.shape[0] == 1
+                         else val.repeat((self.k,) + (1,) * (val.ndim - 1)
+                                         )[:self.k])
+        if self.score == "information_gain":
+            best = int(torch.argmax(u.expected_information_gain(eps)))
+        else:
+            best = int(torch.argmin(u.bayes_risk(eps)))
+        return {f: v[best:best + 1] for f, v in eps.items()}
+
+    def propose(self, generator, weights, locations, idx_exp):
+        raise NotImplementedError(
+            "BestOfKMetaheuristic scores candidates against the updater's "
+            "posterior; use the host __call__ form")

@@ -1,6 +1,6 @@
 """Tomography benchmark of the port: particle-updates/s and the recovered
 fidelity of adaptive tomography on one CUDA device (counterpart of
-``benchmarks/tomography_bench.py`` without ``--eig``).
+``benchmarks/tomography_bench.py``).
 
 * ``--process [--process-qubits 1|2]``: process tomography of a
   depolarizing-0.25 channel, BCSZ prior over Choi states, random
@@ -26,19 +26,26 @@ resample and the moves by waste-free resample-move. For the process and
 state modes the record is the sufficient statistics of the fixed
 candidate pool (every (prep, meas) pair, or every projector), kept on the
 device; ``--record full`` keeps every outcome and experiment instead.
+With ``--eig`` the process and state modes choose each experiment from
+the candidate pool by the two-outcome expected information gain of the
+underlying model (``--eig-policy``: greedy, egreedy with
+``--eig-epsilon``, softmax or auto), scored on the device and picked
+there; ``--eig-interval K > 1`` rescores only every K-th step and right
+after a step that resampled.
 The resampler skips its own strict projection when the moves re-project
 (``--moves`` without ``--no-move-canonicalize``) or ``--project-every``
 projects periodically: at least one strict projection per resample-move
-event. One warm-up run, then three timed repeats, each from a fresh
-prior ensemble (drawn before the clock starts); the rate is over the best
-wall. The fidelity of the posterior mean to the truth is computed on the
-host, as is the prior mean's, which the posterior must beat.
+event. One warm-up run of at most 200 steps, then ``--repeats`` (3)
+timed runs, each from a fresh prior ensemble (drawn before the clock
+starts); the rate is over the best wall. The fidelity of the posterior
+mean to the truth is computed on the host, as is the prior mean's, which
+the posterior must beat.
 
 Run with ``python -m qinfer_tpu_torch.tomography_bench [mode] [options]``.
 It refuses to run without a CUDA device unless ``--cpu`` asks for the CPU
 (the result then names the CPU as its device). Prints ONE JSON line; with
-moves its ``mean_move_acceptance`` and ``final_log_scale`` hold one value
-per timed run.
+moves its ``mean_move_acceptance`` and ``final_log_scale``, and with
+``--eig`` its ``n_rescores``, hold one value per timed run.
 """
 
 from __future__ import annotations
@@ -54,25 +61,51 @@ from functools import reduce
 import numpy as np
 import torch
 
-from .bench import card_label, profile_device_time
+from .bench import card_label, parse_refusing, profile_device_time
 from .derived_models import BinomialModel
+from .expdesign import select_candidate
 from .resamplers import LiuWestResampler
-from .smc import SMCState, _update_step, resample_interval_gate
+from .smc import (SMCState, _expected_information_gain, _update_step,
+                  resample_interval_gate)
 from . import rejuvenation as rj
 from . import tomography as tomo
 
 N_REPEATS = 3
+#: steps of the warm-up run (it builds the kernels and the libraries'
+#: handles; its result is not kept)
+WARMUP_STEPS = 200
 #: flags of the JAX benchmark whose modules the port does not have yet
-NOT_PORTED = ("eig",)
+NOT_PORTED = ()
+
+
+@dataclasses.dataclass
+class Design:
+    """The experiment design of a run (``--eig``, ``--eig-policy``,
+    ``--eig-epsilon`` and ``--eig-interval``)."""
+
+    policy: str = "greedy"
+    epsilon: float = 0.25
+    interval: int = 1
+
+    def rescore(self, idx, just_resampled):
+        """Whether step ``idx`` scores the pool afresh: every step at
+        interval 1, else every ``interval``-th step and the step after a
+        resample (``just_resampled`` of the state this step starts
+        from)."""
+        return (self.interval <= 1 or idx % self.interval == 0
+                or just_resampled)
 
 
 @dataclasses.dataclass
 class Config:
     """One benchmark configuration: the tomography model, its prior, the
-    truth (a (1, d) CPU tensor), a proposal ``propose(generator, idx) ->
-    (expparams, pool index)`` on the device, the candidate pool
-    (``pool_eps``, None for the diffusive mode, whose effects carry a
-    time) and the metric's name."""
+    truth (a (1, d) CPU tensor), a proposal ``propose(generator, idx,
+    weights, locations, scores=None) -> (expparams, pool index)`` on the
+    device, the candidate pool (``pool_eps``, None for the diffusive mode,
+    whose effects carry a time) and the metric's name. With a ``design``
+    the proposal picks from the pool by ``pool_scores(weights,
+    locations)``, the pool's expected information gains (scored anew when
+    ``scores`` is None)."""
 
     metric: str
     model: object
@@ -80,6 +113,8 @@ class Config:
     true_mps: torch.Tensor
     propose: object
     pool_eps: dict = None
+    design: Design = None
+    pool_scores: object = None
 
 
 @dataclasses.dataclass
@@ -153,6 +188,37 @@ def _uniform_index(n, generator, device):
     return torch.randint(0, n, (1,), generator=generator, device=device)
 
 
+def _designed(cfg, design):
+    """``cfg`` with ``design``: the proposal picks from the pool by the
+    expected information gain of the two-outcome model (the binomial
+    count's gain over an (S + 1)-outcome grid would cost S/2 times as
+    much, and the single-shot gain stands in for it at a fixed S)."""
+    if design is None:
+        return cfg
+    if cfg.pool_eps is None:
+        raise SystemExit("--eig requires a candidate pool (--process or "
+                         "plain state tomography): the diffusive effects "
+                         "carry a time")
+    model, pool = cfg.model, cfg.pool_eps
+    first = next(iter(pool.values()))
+    outcomes = torch.arange(2, dtype=torch.int32, device=first.device)
+    mask = torch.ones((2, first.shape[0]), device=first.device)
+
+    def pool_scores(weights, locations):
+        return _expected_information_gain(model, weights, locations,
+                                          outcomes, mask, pool)
+
+    def propose(generator, idx, weights, locations, scores=None):
+        if scores is None:
+            scores = pool_scores(weights, locations)
+        pick = select_candidate(generator, scores, policy=design.policy,
+                                epsilon=design.epsilon).reshape(1)
+        return {k: v[pick] for k, v in pool.items()}, pick
+
+    return dataclasses.replace(cfg, propose=propose, design=design,
+                               pool_scores=pool_scores)
+
+
 def process_config(nq, device):
     """Process tomography of the depolarizing-0.25 channel on ``nq``
     qubits, with random pairs of tetrahedral product fiducials."""
@@ -186,7 +252,7 @@ def process_config(nq, device):
     pool_eps = {"prep": fid.repeat_interleave(n_fid, dim=0),
                 "meas": fid.repeat(n_fid, 1)}
 
-    def propose(generator, idx):
+    def propose(generator, idx, weights, locations, scores=None):
         i = _uniform_index(n_fid, generator, device)
         j = _uniform_index(n_fid, generator, device)
         return {"prep": fid[i], "meas": fid[j]}, i * n_fid + j
@@ -214,7 +280,7 @@ def diffusive_config(rate, device):
     eff = torch.stack(effs).to(device)  # (15, 16)
     t_one = torch.ones((1,), device=device)
 
-    def propose(generator, idx):
+    def propose(generator, idx, weights, locations, scores=None):
         return {"meas": eff[_uniform_index(eff.shape[0], generator,
                                            device)], "t": t_one}, None
 
@@ -244,7 +310,7 @@ def state_config(qubits, device):
         0.5 * (eye_coords[None, :] + np.sqrt(d) * np.eye(basis.n_ops))[1:],
         dtype=torch.float32, device=device)
 
-    def propose(generator, idx):
+    def propose(generator, idx, weights, locations, scores=None):
         pick = _uniform_index(proj.shape[0], generator, device)
         return {"meas": proj[pick]}, pick
 
@@ -254,13 +320,17 @@ def state_config(qubits, device):
 
 
 def make_config(mode, device, process_qubits=2, qubits=1,
-                diffusion_rate=0.003):
-    """``mode`` is ``"process"``, ``"diffusive"`` or ``"state"``."""
+                diffusion_rate=0.003, design=None):
+    """``mode`` is ``"process"``, ``"diffusive"`` or ``"state"``;
+    ``design`` a :class:`Design` for ``--eig`` (the process and state
+    modes only)."""
     if mode == "process":
-        return process_config(process_qubits, device)
-    if mode == "diffusive":
-        return diffusive_config(diffusion_rate, device)
-    return state_config(qubits, device)
+        cfg = process_config(process_qubits, device)
+    elif mode == "diffusive":
+        cfg = diffusive_config(diffusion_rate, device)
+    else:
+        cfg = state_config(qubits, device)
+    return _designed(cfg, design)
 
 
 def fidelity(model, locations, weights, true_mps):
@@ -280,9 +350,13 @@ def run_loop(cfg, state, n_steps, generator, opts=None):
     resample-move options ``opts`` (a :class:`Moves`; none by default).
     The record's totals grow on the device (``index_add_``), the moves run
     only on steps that resampled, and the acceptances and the adapted
-    scale stay on the device until the end. Returns the final state, the
-    (possibly diffused) truth and the moves' tally: ``move_calls``,
-    ``mean_move_acceptance`` and ``final_log_scale``."""
+    scale stay on the device until the end. With a design the pool's
+    scores are carried between rescores (:meth:`Design.rescore`) and stay
+    on the device, as does the pick. Returns the final state, the
+    (possibly diffused) truth and the run's tally: ``move_calls``,
+    ``mean_move_acceptance``, ``final_log_scale``, ``n_rescores`` (None
+    without a design) and ``resample_steps`` (the steps that
+    resampled)."""
     opts = opts if opts is not None else Moves()
     opts.check(cfg)
     dev = state.locations.device
@@ -310,9 +384,15 @@ def run_loop(cfg, state, n_steps, generator, opts=None):
         adapt_t = 0
     acc_sum = torch.zeros((), device=dev)
     move_calls = 0
+    design = cfg.design
+    scores, n_rescores, resample_steps = None, 0, []
     n = state.weights.shape[0]
     for idx in range(n_steps):
-        eps, pool_idx = cfg.propose(generator, idx)
+        if design is not None and design.rescore(idx, state.just_resampled):
+            scores = cfg.pool_scores(state.weights, state.locations)
+            n_rescores += 1
+        eps, pool_idx = cfg.propose(generator, idx, state.weights,
+                                    state.locations, scores)
         if opts.shots > 0:
             eps = dict(eps, n_meas=shots)
         outcome = model.simulate_experiment(generator, true, eps).reshape(-1)
@@ -322,6 +402,8 @@ def run_loop(cfg, state, n_steps, generator, opts=None):
         state, _, _ = _update_step(
             model, resampler, state, outcome[:1], eps, 0.5, 1e-10, generator,
             check_resample=not waste_free, resample_gate=gate)
+        if state.just_resampled:
+            resample_steps.append(idx)
         if sufficient:
             # success := underlying outcome 0 (a count with shots)
             if opts.shots > 0:
@@ -348,6 +430,7 @@ def run_loop(cfg, state, n_steps, generator, opts=None):
                 state = dataclasses.replace(
                     state, weights=w, locations=x, just_resampled=True,
                     resample_count=state.resample_count + 1)
+                resample_steps.append(idx)
                 acc_sum, move_calls = acc_sum + acc, move_calls + 1
             continue
         if opts.moves == 0 or not state.just_resampled:
@@ -381,7 +464,9 @@ def run_loop(cfg, state, n_steps, generator, opts=None):
              "mean_move_acceptance": (float(acc_sum) / max(move_calls, 1)
                                       if opts.moves > 0 else None),
              "final_log_scale": (float(log_scale) if opts.adaptive
-                                 else None)}
+                                 else None),
+             "n_rescores": n_rescores if design is not None else None,
+             "resample_steps": resample_steps}
     return state, true, moves
 
 
@@ -391,7 +476,7 @@ def timed_run(cfg, n_particles, n_steps, seed, device, opts=None):
     count first. Returns a dict with ``wall_s``, the final ``state`` and
     ``true``, the ``fidelity``, the ``prior_fidelity`` (the initial
     ensemble's mean against the final truth), ``projections`` and the
-    moves' tally (:func:`run_loop`)."""
+    run's tally (:func:`run_loop`)."""
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
     state = SMCState.initial(cfg.prior.sample(generator, n_particles))
@@ -477,26 +562,42 @@ def parse_args(argv=None):
                         choices=["auto", "full"],
                         help="'full' keeps every outcome and experiment "
                         "instead of the pool's sufficient statistics")
+    parser.add_argument("--eig", action="store_true",
+                        help="choose each experiment from the candidate "
+                        "pool by expected information gain (process and "
+                        "state modes)")
+    parser.add_argument("--eig-policy", default="greedy",
+                        choices=["greedy", "egreedy", "softmax", "auto"],
+                        help="candidate-selection policy for --eig")
+    parser.add_argument("--eig-epsilon", type=float, default=0.25,
+                        help="exploration rate of --eig-policy egreedy "
+                        "(and auto)")
+    parser.add_argument("--eig-interval", type=int, default=1,
+                        help="rescore the pool every K-th step and after "
+                        "a step that resampled (1: every step)")
+    parser.add_argument("--repeats", type=int, default=N_REPEATS,
+                        help="timed runs after the warm-up")
     parser.add_argument("--cpu", action="store_true",
                         help="run on the CPU (the plain versions of the "
                         "kernels); the result names the CPU")
     parser.add_argument("--profile", metavar="PATH",
                         help="after the timed runs, profile one more run "
                         "and write its device time by kernel to PATH")
-    for flag in NOT_PORTED:
-        parser.add_argument("--" + flag.replace("_", "-"), nargs="?",
-                            const=True, default=None, help="not ported yet")
-    args = parser.parse_args(argv)
-    for flag in NOT_PORTED:
-        if getattr(args, flag) is not None:
-            raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet")
-    return args
+    return parse_refusing(parser, argv, NOT_PORTED)
 
 
 def moves_from_args(args):
     """The :class:`Moves` of the parsed flags."""
     return Moves(**{f.name: getattr(args, f.name)
                     for f in dataclasses.fields(Moves)})
+
+
+def design_from_args(args):
+    """The :class:`Design` of the parsed flags, None without ``--eig``."""
+    if not args.eig:
+        return None
+    return Design(policy=args.eig_policy, epsilon=args.eig_epsilon,
+                  interval=args.eig_interval)
 
 
 def main(argv=None):
@@ -514,15 +615,17 @@ def main(argv=None):
         device_name, card = torch.cuda.get_device_name(device), card_label()
     mode = ("process" if args.process else
             "diffusive" if args.diffusive else "state")
+    design = design_from_args(args)
     cfg = make_config(mode, device, args.process_qubits, args.qubits,
-                      args.diffusion_rate)
+                      args.diffusion_rate, design)
     opts = moves_from_args(args)
     n, steps = args.particles, args.steps
 
-    timed_run(cfg, n, steps, 1000 * args.seed, device, opts)
+    timed_run(cfg, n, min(steps, WARMUP_STEPS), 1000 * args.seed, device,
+              opts)
     runs = [timed_run(cfg, n, steps, 1000 * args.seed + rep + 1, device,
                       opts)
-            for rep in range(N_REPEATS)]
+            for rep in range(args.repeats)]
     walls = [r["wall_s"] for r in runs]
     best = min(walls)
     fids = [r["fidelity"] for r in runs]
@@ -549,13 +652,17 @@ def main(argv=None):
         "move_calls": [r["move_calls"] for r in runs],
         "mean_move_acceptance": [r["mean_move_acceptance"] for r in runs],
         "final_log_scale": [r["final_log_scale"] for r in runs],
+        "eig_design": design is not None,
+        "eig_policy": design.policy if design else None,
+        "eig_interval": design.interval if design else None,
+        "n_rescores": [r["n_rescores"] for r in runs],
         "wall_s": best,
         "repeat_walls_s": walls,
         "ok": ok,
     }
     if args.profile:
         wall, device_s = profiled_run(cfg, n, steps,
-                                      1000 * args.seed + N_REPEATS + 1,
+                                      1000 * args.seed + args.repeats + 1,
                                       device, args.profile, opts)
         result.update(profiled_wall_s=wall, profiled_device_s=device_s,
                       device_idle_share=1.0 - device_s / best)

@@ -573,3 +573,68 @@ def test_binomial_accelerated_model_never_launches_k1(_card):
     w_cpu, w_gpu = states["cpu"].weights, states["cuda"].weights.cpu()
     torch.testing.assert_close(w_gpu, w_cpu, rtol=1e-4,
                                atol=1e-5 * float(w_cpu.max()))
+
+
+def test_k3_at_ten_million_particles_is_bit_exact(_card):
+    """BASELINE config 5's resample fill: n = 10⁷ (no power of two), d = 1."""
+    n = 10_000_000
+    g = _gen(7)
+    w = torch.rand((n,), generator=g, device=_card) ** 8 + 1e-12
+    m, starts = counting_multiplicities_from_u(0.29, w / w.sum(), n)
+    assert int(m.sum()) == n
+    x = torch.rand((n, 1), generator=g, device=_card)
+    got = sr.streaming_resample_locations(m, starts, x)
+    want = sr.streaming_resample_locations_plain(m, starts, x)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_design_scoring_and_selection_never_wait_for_the_card(_card):
+    """Under ``set_sync_debug_mode("error")``: the information gain and
+    Bayes risk of a masked binomial pool through the updater, chunked and
+    not, every selection policy, and the flagship bench's pool scores and
+    pick (two-qubit process, 256 pairs). The card's scores equal the
+    CPU's on the same particles (rtol 1e-5, atol 2e-6: float32 reduction
+    order)."""
+    from qinfer_tpu_torch import (BinomialModel, SimplePrecessionModel,
+                                  SMCUpdater, UniformDistribution)
+    from qinfer_tpu_torch import tomography_bench as tb
+    from qinfer_tpu_torch.expdesign import select_candidate
+
+    model = BinomialModel(SimplePrecessionModel(), n_meas_max=8)
+    ups = {d: SMCUpdater(model, 20_000, UniformDistribution([[0.0, 1.0]]),
+                         seed=3, device=d) for d in ("cpu", "cuda")}
+    ups["cuda"].state.locations.copy_(ups["cpu"].state.locations)
+    gen = torch.Generator().manual_seed(1)
+    eps = {"t": torch.rand((20,), generator=gen) * 30,
+           "n_meas": torch.randint(1, 9, (20,), generator=gen,
+                                   dtype=torch.int32)}
+    eps_card = {k: v.to(_card) for k, v in eps.items()}
+    cfg = tb.make_config("process", _card, 2,
+                         design=tb.Design("egreedy", 0.25, 4))
+    x = cfg.prior.sample(_gen(5), 4096)
+    w = torch.full((4096,), 1.0 / 4096, device=_card)
+    g = _gen(9)
+    u = ups["cuda"]
+    # warm-up: the models copy their constant tables to the card once
+    u.expected_information_gain(eps_card)
+    cfg.pool_scores(w, x)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [u.expected_information_gain(eps_card),
+               u.expected_information_gain(eps_card, candidate_chunk=7),
+               u.bayes_risk(eps_card), u.bayes_risk(eps_card,
+                                                    candidate_chunk=7)]
+        picks = [select_candidate(g, got[0], policy=p)
+                 for p in ("greedy", "egreedy", "softmax", "auto")]
+        scores = cfg.pool_scores(w, x)
+        pool_eps, pool_idx = cfg.propose(g, 0, w, x, scores)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    cpu = ups["cpu"]
+    want = [cpu.expected_information_gain(eps)] * 2 + [cpu.bayes_risk(eps)] * 2
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=2e-6)
+    assert all(p.is_cuda and p.shape == () for p in picks)
+    assert scores.shape == (256,) and bool(torch.isfinite(scores).all())
+    assert pool_idx.is_cuda and pool_eps["prep"].shape == (1, 16)

@@ -23,7 +23,10 @@ def test_importing_the_port_leaves_jax_out():
     code = ("import sys, qinfer_tpu_torch, qinfer_tpu_torch.bench, "
             "qinfer_tpu_torch.convert, qinfer_tpu_torch.kernels, "
             "qinfer_tpu_torch.tomography, "
-            "qinfer_tpu_torch.tomography_bench; "
+            "qinfer_tpu_torch.tomography_bench, qinfer_tpu_torch.expdesign, "
+            "qinfer_tpu_torch.expdesign_bench, "
+            "qinfer_tpu_torch.finite_difference, "
+            "qinfer_tpu_torch.horizon_bench; "
             "print(sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'qinfer_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -231,12 +231,19 @@ def test_updater_refuses_options_outside_the_port():
 
 
 def test_eig_is_the_one_bench_flag_still_refused():
+    """Every flag of the JAX benchmark is ported; ``--eig`` is refused only
+    where the JAX benchmark has no candidate pool for it, on the diffusive
+    path."""
     from qinfer_tpu_torch import tomography_bench as tb
 
-    assert tb.NOT_PORTED == ("eig",)
-    for flags in (["--eig"], ["--eig", "greedy"]):
-        with pytest.raises(SystemExit, match="--eig is not ported yet"):
-            tb.parse_args(["--process"] + flags)
+    assert tb.NOT_PORTED == ()
+    args = tb.parse_args("--process --eig --eig-policy auto --eig-epsilon "
+                         "0.1 --eig-interval 4".split())
+    assert tb.design_from_args(args) == tb.Design("auto", 0.1, 4)
+    assert tb.design_from_args(tb.parse_args(["--process"])) is None
+    design = tb.design_from_args(tb.parse_args(["--diffusive", "--eig"]))
+    with pytest.raises(SystemExit, match="candidate pool"):
+        tb.make_config("diffusive", torch.device("cpu"), design=design)
     tb.parse_args("--process --shots 64 --moves 8 --adapt --waste-free 4 "
                   "--project-every 2 --record full".split())
 
