@@ -44,6 +44,15 @@ one line, and any failure exits non-zero without the final ``ok`` line:
    exact on one of the run's resamples, chunked and unchunked scores
    equal on the final state, and the peak memory of a chunked scoring
    call (64 at a time) the same at 256 and at 1024 candidates.
+   Then the models path: BASELINE configs 2 (Ramsey with T2, d = 2) and
+   3 (randomized benchmarking, d = 3) through ``models_bench`` at 50 000
+   particles and ``--repeats 8`` (``SMCUpdater.batch_update`` over 256
+   and 128 experiments, the ESS checked every 5th step): K3 once per
+   resample of each timed run and bit-exact on one of each config's own
+   resamples, each posterior mean within 4 sd of the truth, config 3's
+   credible set, hull vertices and MVEE finite, and whether the truth lies
+   in its ``hpd_mvee`` region; then ``simple_est_rb`` at its defaults on a
+   synthetic record (K3 once per resample).
    Then one more precession run records the largest |ω·t/2| that K1
    meets, and K1 is checked on that step's particles and t;
 6. timing: each kernel's time against its plain version's and, where one
@@ -51,9 +60,12 @@ one line, and any failure exits non-zero without the final ``ok`` line:
    ``repeat_interleave`` for K3, ``torch.linalg.eigh`` for K6 where
    cuSOLVER takes the batch), beside the kernel's bound (:func:`bound`),
    after the main paths so the profiler cannot slow the loops: K1-K3 by
-   profiler device time, K4-K6 by CUDA events; beside them shapes and
-   designs timed for comparison (K4's input through K5's one matrix a
-   warp, K1 at the path's late-step t).
+   profiler device time (by CUDA events around calls queued behind a
+   spin where the profiler sees none; each line and result's ``timer``
+   says which), K4-K6 by CUDA events; beside them shapes and designs
+   timed for comparison (K4's input through K5's one matrix a warp, K1
+   at the path's late-step t). K3 at the models path's shapes goes into
+   K3's entry of the kernels line, under ``other_shapes``.
 
 Then it prints the kernels' JSON line, the card line and, last,
 ``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --kernels-only``
@@ -87,6 +99,8 @@ EIG_PATH_SIZE = (50_000, 2000)
 CONFIG5 = (10_000_000, 32, 16)
 CONFIG5_CHUNK = 4
 CONFIG5_MEMORY = (64, (256, 1024))
+#: the models path (BASELINE configs 2 and 3): particles, ladder repeats
+MODELS = (50_000, 8)
 #: rows of each Jacobi batch held against host float64
 N_F64 = 2000
 #: the process path's resample fill: (particles, parameters)
@@ -159,12 +173,57 @@ def device_events(fn, reps, tries=3):
 
 
 def device_ms(fn, reps=20):
-    """Device time of one ``fn()`` in ms: every kernel and copy it runs,
-    summed by the profiler over ``reps`` calls. The host's launch overhead
-    is left out; inputs that fit the 50 MB L2 stay warm across calls."""
-    us = sum(e.self_device_time_total for e in device_events(fn, reps))
-    require(us > 0, "the profiler saw no device time")
-    return us / 1e3 / reps
+    """Time of one ``fn()`` in ms, and how it was taken. First by the
+    profiler: every kernel and copy it runs, summed over ``reps`` calls
+    ("device time"); the host's launch overhead is left out, and inputs
+    that fit the 50 MB L2 stay warm across calls. Late in this script's
+    long process the profiler has once reported no device event in any of
+    its tries; the time is then taken by :func:`queued_ms`."""
+    try:
+        us = sum(e.self_device_time_total for e in device_events(fn, reps))
+    except SmokeFailure:
+        us = 0
+    if us > 0:
+        return us / 1e3 / reps, "device time"
+    return queued_ms(fn, reps)
+
+
+def queued_ms(fn, reps=20, clock_hz=2.0e9):
+    """Time of one ``fn()`` in ms by CUDA events around ``reps`` calls that
+    the host queued while the card spun (``torch.cuda._sleep`` for twice
+    the host's time to queue them, in cycles at ``clock_hz``, above the
+    card's clock), so that the calls run back to back and the events
+    bracket device time, not the host's launch rate. If the first event
+    had already fired when the host finished queuing, the spin is doubled
+    and the reading taken again; after four tries (a ``fn`` that waits
+    for the card) the events time the calls as the host paces them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    spin = 2 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin * clock_hz))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued:
+            return (start.elapsed_time(end) / reps,
+                    "CUDA events behind a spin (the profiler saw no device "
+                    "time)")
+        spin *= 2
+    return (event_ms(fn, reps),
+            "CUDA events, paced by the host (the profiler saw no device "
+            "time)")
 
 
 def event_ms(fn, reps=5):
@@ -192,19 +251,23 @@ def event_ms(fn, reps=5):
 def time_turns(fns, timer):
     """Times of each of ``fns`` (kernel first), taken in turns: the list,
     then the list reversed (plain, library, kernel, kernel, library,
-    plain); each the mean of its two readings."""
+    plain); each the mean of its two readings, with how they were taken
+    (``timer`` returns ``(ms, how)``)."""
     first = [timer(fn) for fn in reversed(fns)][::-1]
     second = [timer(fn) for fn in fns]
-    return [(a + b) / 2 for a, b in zip(first, second)]
+    return [((a + b) / 2, ha if ha == hb else f"{ha}, then {hb}")
+            for (a, ha), (b, hb) in zip(first, second)]
 
 
 def timed(result, kernel, plain, library=None, no_library=None,
-          bound_at=None):
+          bound_at=None, attach=None):
     """One kernel to time: its JSON ``result`` (or a label for a shape
     timed besides), its kernel, plain and library calls, why it has no
-    library call, and ``(bound_ms, bound_by)`` at this shape."""
+    library call, and ``(bound_ms, bound_by)`` at this shape. A shape timed
+    besides with ``attach``, a dict naming its ``kernel``, goes into that
+    kernel's result under ``other_shapes``, with the dict's other keys."""
     return dict(result=result, kernel=kernel, plain=plain, library=library,
-                no_library=no_library, bound=bound_at)
+                no_library=no_library, bound=bound_at, attach=attach)
 
 
 def check_kernels(torch, dev):
@@ -558,15 +621,16 @@ def eigh_library(torch, a):
 def time_kernels(timers, extra):
     """Phase 6: time of each kernel, of its plain version and of its
     library call at the main paths' shapes, then at the shapes in
-    ``extra`` (printed only): K1-K3 by profiler device time, first; then
-    the Jacobi kernels K4-K6 by CUDA events (:func:`event_ms`). Each
-    result gains ``ms``, ``plain_ms``, ``library_ms`` (null, with the
-    reason printed, where no one PyTorch call computes the same function),
-    ``bound_ms`` and ``bound_by``."""
-    results = []
+    ``extra`` (printed only): K1-K3 by profiler device time, first
+    (:func:`device_ms`, with its CUDA-event fallback); then the Jacobi
+    kernels K4-K6 by CUDA events (:func:`event_ms`). Each result gains
+    ``ms``, ``plain_ms``, ``library_ms`` (null, with the reason printed,
+    where no one PyTorch call computes the same function), ``bound_ms``,
+    ``bound_by`` and ``timer``, how the kernel's time was taken."""
+    results, attached = [], []
     for jacobi in (False, True):
-        timer, how = (event_ms, "CUDA events") if jacobi else (
-            device_ms, "device time")
+        timer = ((lambda fn: (event_ms(fn), "CUDA events")) if jacobi
+                 else device_ms)
         for t in timers + extra:
             label = t["result"]
             label = label if isinstance(label, str) else label["name"]
@@ -574,22 +638,33 @@ def time_kernels(timers, extra):
                 continue
             fns = [t["kernel"], t["plain"]] + (
                 [t["library"]] if t["library"] else [])
-            ms = time_turns(fns, timer) + [None]
+            turns = time_turns(fns, timer)
+            ms = [m for m, _ in turns] + [None]
+            hows = [h for _, h in turns]
+            how = hows[0] if len(set(hows)) == 1 else " / ".join(
+                f"{w}: {h}" for w, h in zip(("kernel", "plain", "library"),
+                                            hows))
             bound_ms, bound_by = t["bound"]
-            say("timing", f"{label}: {ms[0]:.4f} ms {how} (plain "
-                          f"{ms[1]:.4f} ms, library " + (
-                              f"{ms[2]:.4f} ms" if ms[2] is not None
-                              else "none") +
+            say("timing", f"{label}: {ms[0]:.4f} ms (plain {ms[1]:.4f} ms, "
+                          "library " + (f"{ms[2]:.4f} ms" if ms[2] is not None
+                                        else "none") +
                           f"; bound {bound_ms:.4g} ms by {bound_by}, "
-                          f"{100 * bound_ms / ms[0]:.1f} % of it)")
+                          f"{100 * bound_ms / ms[0]:.1f} % of it) by {how}")
             if ms[2] is None:
                 say("timing", f"{label}: no library call: "
                               f"{t['no_library']}")
+            numbers = dict(ms=ms[0], plain_ms=ms[1], library_ms=ms[2],
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           timer=hows[0])
             if not isinstance(t["result"], str):
-                t["result"].update(ms=ms[0], plain_ms=ms[1],
-                                   library_ms=ms[2], bound_ms=bound_ms,
-                                   bound_by=bound_by)
+                t["result"].update(numbers)
                 results.append(t["result"])
+            elif t["attach"] is not None:
+                attached.append(dict(t["attach"], shape=label, **numbers))
+    for a in attached:
+        r = next(r for r in results if r["name"] == a["kernel"])
+        r.setdefault("other_shapes", []).append(
+            {k: v for k, v in a.items() if k != "kernel"})
     return results
 
 
@@ -940,6 +1015,27 @@ def _recording_resampler(torch):
     return Recording(a=0.98)
 
 
+def _replay_fill(torch, dev, recorded, what):
+    """K3 against its plain version on a recorded resample's own inputs
+    (its uniform offset replayed from the generator state the resampler
+    met): bit-exact, or the phase fails. Returns ``(m, starts, x)``."""
+    from qinfer_tpu_torch.ops import streaming_resample as sr
+    from qinfer_tpu_torch.resamplers import counting_multiplicities_from_u
+
+    gen_state, w, x = recorded
+    g = torch.Generator(device=dev)
+    g.set_state(gen_state)
+    u = torch.rand((), generator=g, device=dev)
+    n = x.shape[0]
+    m, starts = counting_multiplicities_from_u(u, w, n)
+    require(int(m.sum()) == n, f"{what}: K3 counts do not sum to n")
+    got = sr.streaming_resample_locations(m, starts, x)
+    want = sr.streaming_resample_locations_plain(m, starts, x)
+    require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+            f"{what}: K3 not bit-exact on the run's first resample")
+    return m, starts, x
+
+
 def run_config5(torch, dev, card):
     """Phase 5: BASELINE config 5, ``expdesign_bench`` at ``CONFIG5``,
     unchunked and ``CONFIG5_CHUNK`` candidates at a time, counted over its
@@ -956,7 +1052,6 @@ def run_config5(torch, dev, card):
     recorded resample's shape."""
     from qinfer_tpu_torch import expdesign_bench as eb
     from qinfer_tpu_torch.ops import streaming_resample as sr
-    from qinfer_tpu_torch.resamplers import counting_multiplicities_from_u
     from qinfer_tpu_torch.smc import (SMCUpdater, _expected_information_gain,
                                       score_candidates)
     from qinfer_tpu_torch import SimplePrecessionModel, UniformDistribution
@@ -990,16 +1085,8 @@ def run_config5(torch, dev, card):
                     f"{card}")
         finals[chunk] = (r["state"], rs.first)
 
-    state, (gen_state, w, x) = finals[0]
-    g = torch.Generator(device=dev)
-    g.set_state(gen_state)
-    u = torch.rand((), generator=g, device=dev)
-    m, starts = counting_multiplicities_from_u(u, w, n)
-    require(int(m.sum()) == n, "config 5: K3 counts do not sum to n")
-    got = sr.streaming_resample_locations(m, starts, x)
-    want = sr.streaming_resample_locations_plain(m, starts, x)
-    require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
-            "config 5: K3 not bit-exact on the run's first resample")
+    state, recorded = finals[0]
+    m, starts, x = _replay_fill(torch, dev, recorded, "config 5")
 
     model = SimplePrecessionModel()
     cand = {"t": eb.candidate_spread(n_cand, dev) * 20.0}
@@ -1045,6 +1132,126 @@ def run_config5(torch, dev, card):
         lambda: sr.streaming_resample_locations_plain(m, starts, x),
         library=lambda: torch.repeat_interleave(x, m, dim=0, output_size=n),
         bound_at=bound(4 * n + 8 * n, 0))
+
+
+def run_models_path(torch, dev, card):
+    """Phase 5: the models path, ``models_bench`` at ``MODELS`` (BASELINE
+    configs 2 and 3 through ``SMCUpdater.batch_update``), with every launch
+    count set to 0 just before each timed call and read just after: K3
+    once per resample (at least one) and no other kernel. Each posterior
+    mean within 4 sd of the truth (``max_z_vs_true``); config 3's credible
+    set, hull vertices and MVEE ``(A, c)`` finite, and whether the truth
+    lies in the ``hpd_mvee`` region printed. K3 bit-exact on the first
+    resample of each config. Then ``simple_est_rb`` at its defaults on a
+    synthetic 32-experiment record, counted the same way. Returns K3's
+    timing entries at the two configs' shapes, to attach to K3's result."""
+    import numpy as np
+    from qinfer_tpu_torch import models_bench as mb
+    from qinfer_tpu_torch import simple_est_rb
+    from qinfer_tpu_torch.ops import streaming_resample as sr
+
+    n, repeats = MODELS
+    counted = counted_wrappers()
+    runs, recorders = [], []
+
+    def zero_counts():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read_counts(updater):
+        runs.append(({name: fn.launches for name, fn in counted.items()},
+                     updater.resample_count))
+
+    def make_resampler():
+        recorders.append(_recording_resampler(torch))
+        return recorders[-1]
+
+    results = mb.run_bench(n, repeats, dev, make_resampler=make_resampler,
+                           before_run=zero_counts, after_run=read_counts)
+    entries = []
+    for i, (u, rec) in enumerate(results):
+        tag = rec["metric"].split("_particle")[0]
+        cfg_runs = runs[mb.N_TIMED * i:mb.N_TIMED * (i + 1)]
+        for launches, resamples in cfg_runs:
+            require(launches["streaming_resample_locations"] == resamples
+                    >= 1, f"models path {tag}: K3 launched "
+                    f"{launches['streaming_resample_locations']} times for "
+                    f"{resamples} resamples")
+            require(all(v == 0 for k, v in launches.items()
+                        if k != "streaming_resample_locations"),
+                    f"models path {tag} launched another kernel: {launches}")
+        st = u.state
+        require(bool(torch.isfinite(st.weights).all())
+                and bool(torch.isfinite(st.locations).all())
+                and math.isfinite(u.log_total_likelihood),
+                f"models path {tag}: NaN or inf in the state")
+        require(rec["max_z_vs_true"] <= 4.0, f"models path {tag}: "
+                f"max_z_vs_true {rec['max_z_vs_true']} above 4")
+        m, starts, x = _replay_fill(torch, dev, recorders[i].first,
+                                    f"models path {tag}")
+        nn, d = x.shape
+        k3 = [c["streaming_resample_locations"] for c, _ in cfg_runs]
+        say("main", f"models {tag}: best of {mb.N_TIMED} {rec['wall_s']:.4f}"
+                    f" s ({rec['repeat_walls_s']}) for {nn} particles x "
+                    f"{rec['n_experiments']} experiments = "
+                    f"{rec['value']:.6g} particle-updates/s, resamples per "
+                    f"run {[r for _, r in cfg_runs]}, K3 launches {k3}"
+                    f", max_z_vs_true {rec['max_z_vs_true']:.4f}, est "
+                    f"{rec['est']}; K3 bit-exact on the first resample "
+                    f"(n = {nn}, d = {d}) on {card}")
+        entries.append(timed(
+            f"streaming_resample_locations n={nn}, d={d} (models path, "
+            f"{tag}'s first resample)",
+            lambda m=m, s=starts, x=x: sr.streaming_resample_locations(
+                m, s, x),
+            lambda m=m, s=starts, x=x: sr.streaming_resample_locations_plain(
+                m, s, x),
+            library=lambda m=m, x=x, nn=nn: torch.repeat_interleave(
+                x, m, dim=0, output_size=nn),
+            bound_at=bound(4 * nn + 8 * nn * d, 0),
+            attach=dict(kernel="streaming_resample_locations",
+                        launches=cfg_runs[-1][0][
+                            "streaming_resample_locations"])))
+
+    u3, rec3 = results[1]
+    region = rec3["region_est"]
+    pts = u3.est_credible_region(0.95)
+    vertices, _ = u3.region_est_hull(0.95)
+    A, c = u3.region_est_ellipsoid(0.95)
+    require(pts.shape[0] >= 4 and bool(np.isfinite(pts).all()),
+            f"models path rb: credible set of shape {pts.shape}")
+    require(bool(np.isfinite(vertices).all()) and vertices.shape[0] >= 4,
+            f"models path rb: hull vertices of shape {vertices.shape}")
+    require(bool(np.isfinite(A).all()) and bool(np.isfinite(c).all()),
+            "models path rb: the MVEE (A, c) is not finite")
+    true3 = mb.make_configs(1)[1].true
+    inside = bool(u3.in_credible_region(true3, 0.95, method="hpd_mvee")[0])
+    say("main", f"models rb region: {region['credible_points']} credible "
+                f"points, {vertices.shape[0]} hull vertices, MVEE center "
+                f"{c.tolist()}, query {region['wall_s']:.4f} s; the truth "
+                f"{true3.tolist()} is {'inside' if inside else 'OUTSIDE'} "
+                f"the hpd_mvee region")
+
+    rng = np.random.default_rng(11)
+    ms = np.tile([1, 2, 4, 8, 16, 32, 64, 128], 4)
+    counts = rng.binomial(30, 0.4 * 0.95 ** ms + 0.5)
+    data = np.stack([counts, ms, np.full(len(ms), 30)], 1).astype(float)
+    zero_counts()
+    t0 = time.perf_counter()
+    mean, cov, extra = simple_est_rb(data, return_all=True, device=dev)
+    wall = time.perf_counter() - t0
+    u = extra["updater"]
+    k3 = counted["streaming_resample_locations"].launches
+    require(mean.shape == (3,) and bool(np.isfinite(mean).all())
+            and bool(np.isfinite(cov).all()),
+            f"simple_est_rb: mean {mean}, cov {cov}")
+    require(k3 == u.resample_count >= 1, f"simple_est_rb: K3 launched {k3} "
+            f"times for {u.resample_count} resamples")
+    say("main", f"simple_est_rb (8000 particles, 32 experiments): mean "
+                f"{mean.tolist()}, sd {np.sqrt(np.diag(cov)).tolist()}, "
+                f"{u.resample_count} resamples = K3 launches, {wall:.4f} s "
+                f"with the updater's set-up")
+    return entries
 
 
 def main(argv):
@@ -1110,6 +1317,7 @@ def main(argv):
     run_moves_path(torch, dev, card, flags=EIG_PATH, size=EIG_PATH_SIZE,
                    label="eig flagship")
     extra.append(run_config5(torch, dev, card))
+    extra.extend(run_models_path(torch, dev, card))
     extra.append(late_step_k1(torch, dev)[0])
     results = time_kernels(timers + jac_timers, extra + jac_extra)
     require("jax" not in sys.modules, "JAX was imported")

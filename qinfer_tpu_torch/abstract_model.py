@@ -1,6 +1,6 @@
 """Model and simulator abstractions (counterpart of
 :mod:`qinfer_tpu.abstract_model`: ``Simulatable`` → ``Model`` →
-``FiniteOutcomeModel``).
+``FiniteOutcomeModel``, and ``DifferentiableModel`` with ``ScoreMixin``).
 
 * ``likelihood(outcomes, modelparams, expparams)`` keeps the reference's
   ``(n_outcomes, n_models, n_expparams)`` shape contract.
@@ -26,6 +26,8 @@ __all__ = [
     "Simulatable",
     "Model",
     "FiniteOutcomeModel",
+    "DifferentiableModel",
+    "ScoreMixin",
     "expparams_to_dict",
     "n_expparams",
     "expparams_at",
@@ -273,3 +275,86 @@ class FiniteOutcomeModel(Model):
         outcomes = torch.as_tensor(outcomes, device=pr0.device)
         o = outcomes.reshape((-1,) + (1,) * pr0.ndim)
         return torch.where(o == 0, pr0[None], 1.0 - pr0[None])
+
+
+class DifferentiableModel(Model):
+    """A model with the score ∂ log L / ∂θ and the Fisher information.
+
+    :meth:`score` differentiates the log of :meth:`_score_likelihood` (the
+    likelihood by default) by per-particle reverse-mode autograd,
+    ``torch.func.vmap(torch.func.jacrev(...))``: each particle's Jacobian
+    is (n_outcomes, n_expparams, d), so the work and memory are O(n·d),
+    never the O(n²) of a whole-batch Jacobian.
+    """
+
+    def _score_likelihood(self, outcomes, modelparams, expparams):
+        """The likelihood that :meth:`score` differentiates: a model whose
+        likelihood runs a kernel without an autograd rule names its plain
+        twin here."""
+        return self.likelihood(outcomes, modelparams, expparams)
+
+    def score(self, outcomes, modelparams, expparams, return_L=False):
+        """∂ log L(outcome | θ, e) / ∂θ: ``(n_modelparams, n_outcomes,
+        n_models, n_expparams)``; with ``return_L`` also the likelihood
+        ``(n_outcomes, n_models, n_expparams)``."""
+        modelparams = atleast_2d(modelparams)
+        eps = self.canonicalize_expparams(expparams, modelparams.device)
+        outcomes = torch.as_tensor(outcomes, device=modelparams.device)
+        outcomes = outcomes.reshape(-1) if outcomes.ndim == 0 else outcomes
+
+        def log_L_single(x):
+            # one particle (d,) -> (n_outcomes, n_expparams)
+            L = self._score_likelihood(outcomes, x[None, :], eps)
+            return torch.log(torch.clamp_min(L[:, 0, :], EPS))
+
+        jac = torch.func.vmap(torch.func.jacrev(log_L_single))(modelparams)
+        # (n_m, n_out, n_e, d) -> (d, n_out, n_m, n_e)
+        q = jac.permute(3, 1, 0, 2)
+        if return_L:
+            return q, self.likelihood(outcomes, modelparams, eps)
+        return q
+
+    def fisher_information(self, modelparams, expparams):
+        """E_outcomes[score scoreᵀ] for each (model, experiment):
+        ``(d, d, n_models, n_expparams)``."""
+        modelparams = atleast_2d(modelparams)
+        eps = self.canonicalize_expparams(expparams, modelparams.device)
+        outcomes_fn = getattr(self, "outcomes", None)
+        if outcomes_fn is None:
+            raise NotImplementedError(
+                "fisher_information requires a finite outcome set")
+        scores, L = self.score(outcomes_fn(eps, device=modelparams.device),
+                               modelparams, eps, return_L=True)
+        return torch.einsum("iomE,jomE,omE->ijmE", scores, scores, L)
+
+
+class ScoreMixin:
+    """The score by central finite differences (step ``_h`` = 1e-5 on each
+    parameter), for likelihoods that autograd cannot differentiate. Put it
+    before :class:`DifferentiableModel` in the bases."""
+
+    _h = 1e-5
+
+    def score(self, outcomes, modelparams, expparams, return_L=False):
+        modelparams = atleast_2d(modelparams)
+        eps = self.canonicalize_expparams(expparams, modelparams.device)
+        outcomes = torch.as_tensor(outcomes, device=modelparams.device)
+        outcomes = outcomes.reshape(-1) if outcomes.ndim == 0 else outcomes
+        d = self.n_modelparams
+        h = self._h
+
+        def log_L(mps):
+            return torch.log(torch.clamp_min(
+                self.likelihood(outcomes, mps, eps), EPS))
+
+        cols = []
+        for i in range(d):
+            dx = torch.zeros((1, d), dtype=modelparams.dtype,
+                             device=modelparams.device)
+            dx[0, i] = h
+            cols.append((log_L(modelparams + dx) - log_L(modelparams - dx))
+                        / (2 * h))
+        q = torch.stack(cols, dim=0)
+        if return_L:
+            return q, self.likelihood(outcomes, modelparams, eps)
+        return q

@@ -15,7 +15,11 @@ __all__ = ["AcceleratedPrecessionModel"]
 class AcceleratedPrecessionModel(SimplePrecessionModel):
     """:class:`~qinfer_tpu_torch.test_models.SimplePrecessionModel` whose
     likelihood table comes from kernel K2 and whose reweighting step is
-    kernel K1. float32 only. The kernels take any particle count."""
+    kernel K1. float32 only. The kernels take any particle count.
+
+    The score differentiates the plain likelihood: K2 has no autograd or
+    vmap rule. The JAX package's score reaches the plain likelihood too,
+    since each vmapped particle falls below its kernel's row tile."""
 
     def __init__(self, precision="float", min_freq=0.0):
         super().__init__(min_freq=min_freq)
@@ -30,6 +34,8 @@ class AcceleratedPrecessionModel(SimplePrecessionModel):
         eps = self.canonicalize_expparams(expparams, modelparams.device)
         pr0 = precession_pr0(modelparams[:, 0], eps["t"])  # (n, n_e)
         return self.pr0_to_likelihood_array(outcomes, pr0)
+
+    _score_likelihood = SimplePrecessionModel.likelihood
 
     def fused_reweight(self, weights, locations, outcome, expparams):
         """Engine hook (``smc._reweight``): the whole reweighting step as one

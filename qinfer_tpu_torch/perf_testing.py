@@ -1,7 +1,8 @@
 """Performance-testing harness (counterpart of
-:func:`qinfer_tpu.perf_testing.perf_test`): one full adaptive inference
-run, heuristic → simulate → update, as a host loop through
-:meth:`SMCUpdater.update`, recording loss, timing and resampling per step.
+:func:`qinfer_tpu.perf_testing.perf_test` and ``perf_test_multiple``): one
+full adaptive inference run, heuristic → simulate → update, as a host loop
+through :meth:`SMCUpdater.update`, recording loss, timing and resampling
+per step; and independent trials of it.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from .config import DEFAULT_DEVICE, resolve_device
 from .heuristics import PGH
 from .smc import SMCUpdater
 
-__all__ = ["perf_test", "PERF_DTYPE"]
+__all__ = ["perf_test", "perf_test_multiple", "PERF_DTYPE"]
 
 #: Per-step record dtype (the reference's structured array fields).
 PERF_DTYPE = [
@@ -90,3 +91,42 @@ def perf_test(model, n_particles, prior, n_exp, heuristic_class=PGH,
         "est": ests,
     }
     return performance, extra
+
+
+def perf_test_multiple(n_trials, model, n_particles, prior, n_exp,
+                       heuristic_class=PGH, true_model=None, true_prior=None,
+                       apply=None, progressbar=None, seed=0,
+                       device=DEFAULT_DEVICE, **kwargs):
+    """:func:`perf_test` over ``n_trials`` independent trials, trial ``i``
+    seeded ``seed + 1000·i``. ``apply(fn, i)`` runs one trial (serially by
+    default): an executor may return a handle with ``get()``.
+    ``progressbar`` is a factory of an object with optional ``start(max=)``,
+    ``update(i)`` and ``finished()``. The card by default, as
+    :func:`perf_test`: without a CUDA device, pass ``device="cpu"``.
+
+    :return: structured array ``(n_trials, n_exp)`` of ``PERF_DTYPE``.
+    """
+    device = resolve_device(device)
+    results = np.zeros((n_trials, n_exp), dtype=PERF_DTYPE)
+    prog = progressbar() if progressbar is not None else None
+    if prog is not None and hasattr(prog, "start"):
+        prog.start(max=n_trials)
+
+    def one_trial(i):
+        perf, _ = perf_test(
+            model, n_particles, prior, n_exp, heuristic_class,
+            true_model=true_model, true_prior=true_prior,
+            seed=seed + 1000 * i, device=device, **kwargs)
+        return perf
+
+    for i in range(n_trials):
+        if apply is not None:
+            r = apply(one_trial, i)
+            results[i] = r.get() if hasattr(r, "get") else r
+        else:
+            results[i] = one_trial(i)
+        if prog is not None and hasattr(prog, "update"):
+            prog.update(i + 1)
+    if prog is not None and hasattr(prog, "finished"):
+        prog.finished()
+    return results

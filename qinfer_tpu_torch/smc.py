@@ -1,6 +1,7 @@
 """Sequential Monte Carlo updater (counterpart of :mod:`qinfer_tpu.smc`:
-``SMCState``, the reweighting paths, the update step and ``SMCUpdater``
-with its resample-move options).
+``SMCState``, the reweighting paths, the update step, ``SMCUpdater`` with
+its resample-move options, batch updates, the posterior and region
+estimators, and ``SMCUpdaterBCRB``).
 
 The port runs eagerly. One update step is: reweight (the model's fused
 hook, the max-shifted log path or the linear path) → normalize → the
@@ -13,11 +14,16 @@ device. A resample adds a few syncs of its own (the Cholesky check and the
 early-exit validity redraw). ``SMCUpdater`` can follow each resample with
 Metropolis moves over the record of committed outcomes, or replace it by
 waste-free resample-move (:mod:`qinfer_tpu_torch.rejuvenation`).
+``batch_update`` is a Python loop over the same step (the JAX package
+scans it); the region estimators sort on the device and finish on the
+host (float64 cumsum, scipy hulls, the MVEE).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import logging
 import math
 import warnings
 
@@ -26,14 +32,16 @@ import torch
 
 from .config import DEFAULT_DEVICE, EPS, resolve_device
 from ._exceptions import ResamplerWarning, ZeroWeightError, ZeroWeightWarning
-from .abstract_model import expparams_at, n_expparams
+from .abstract_model import DifferentiableModel, expparams_at, n_expparams
 from .derived_models import BinomialModel
+from .distributions import ParticleDistribution
 from .resamplers import LiuWestResampler
 from . import rejuvenation as rj
-from .utils import particle_covariance_mtx, particle_mean
+from .utils import (in_ellipsoid, mvee, particle_covariance_mtx,
+                    particle_mean, particle_meanfn, weighted_moments)
 
-__all__ = ["SMCState", "SMCUpdater", "resample_interval_gate",
-           "score_candidates"]
+__all__ = ["SMCState", "SMCUpdater", "SMCUpdaterBCRB",
+           "resample_interval_gate", "score_candidates"]
 
 
 @dataclasses.dataclass
@@ -233,10 +241,56 @@ def score_candidates(score_fn, model, weights, locations, eps, extra_args=(),
 def resample_interval_gate(idx, resample_interval):
     """'This step is resample-eligible' for interval-gated loops: every
     ``resample_interval``-th step; ``resample_interval <= 0`` returns
-    ``None`` (gate every step)."""
+    ``None`` (gate every step). :meth:`SMCUpdater.batch_update` reads
+    ``resample_interval <= 0`` the other way, as never checking, as the
+    JAX package's does."""
     if resample_interval > 0:
         return (idx % resample_interval) == (resample_interval - 1)
     return None
+
+
+def _entropy(w):
+    """−Σ wᵢ log wᵢ over the nonzero weights."""
+    return -torch.sum(torch.where(
+        w > 0, w * torch.log(torch.clamp_min(w, EPS)), 0.0))
+
+
+#: elements of the (block, n_ref, d) difference that the KDE holds at once
+_KDE_BLOCK_ELEMENTS = 1 << 22
+
+
+def _log_kde(pts, w_ref, x_ref, h2):
+    """log Σⱼ wⱼ N(pts; xⱼ, h² I) for each point, a block of points at a
+    time: the whole (n_pts, n_ref) distance table is O(n²) memory, so each
+    block's broadcast difference holds at most ``_KDE_BLOCK_ELEMENTS``."""
+    d = pts.shape[1]
+    log_w = torch.log(torch.clamp_min(w_ref, EPS))
+    log_const = -0.5 * d * torch.log(2 * math.pi * h2)
+    n_pts, n_ref = pts.shape[0], x_ref.shape[0]
+    block = max(1, min(n_pts, _KDE_BLOCK_ELEMENTS // max(n_ref * d, 1)))
+    out = []
+    for start in range(0, n_pts, block):
+        b = pts[start:start + block]
+        d2 = torch.sum((b[:, None, :] - x_ref[None, :, :]) ** 2, dim=-1)
+        out.append(torch.logsumexp(-0.5 * d2 / h2 + log_w[None, :], dim=1)
+                   + log_const)
+    return torch.cat(out)
+
+
+def _kl_divergence(w_p, x_p, w_q, x_q, kernel_bandwidth=None):
+    """D(p ‖ q) between two particle clouds through Gaussian kernel
+    density estimates of both at p's particles; the bandwidth defaults to
+    Silverman's rule on q's covariance."""
+    d = x_p.shape[1]
+    if kernel_bandwidth is None:
+        cov_q = particle_covariance_mtx(w_q, x_q)
+        h2 = torch.clamp_min(torch.trace(cov_q) / d, EPS) * (
+            x_q.shape[0] ** (-2.0 / (d + 4)))
+    else:
+        h2 = torch.as_tensor(float(kernel_bandwidth) ** 2,
+                             dtype=x_p.dtype, device=x_p.device)
+    return torch.sum(w_p * (_log_kde(x_p, w_p, x_p, h2)
+                            - _log_kde(x_p, w_q, x_q, h2)))
 
 
 def _update_step(model, resampler, state, outcome, eps, resample_thresh,
@@ -292,8 +346,6 @@ def _update_step(model, resampler, state, outcome, eps, resample_thresh,
 #: constructor options of the JAX ``SMCUpdater`` that this port does not
 #: have yet, with the value that means "off"
 _LATER_OPTIONS = {
-    "debug_resampling": False,
-    "track_resampling_divergence": False,
     "sharding": None,
 }
 
@@ -347,13 +399,23 @@ class SMCUpdater:
     :param float mcmc_target_accept: adaptation target (default 0.234 for
         'rwm', 0.574 for 'mala').
 
-    Options of the JAX updater outside this port (sharding, resampling
-    diagnostics) raise :class:`NotImplementedError` when set to anything
-    but "off".
+    Resampling diagnostics:
+
+    :param bool debug_resampling: log each resample's ESS before and after
+        at DEBUG level (logger ``qinfer_tpu_torch.smc``).
+    :param bool track_resampling_divergence: append the KL divergence
+        D(before ‖ after) of each resample, waste-free ones included, to
+        ``resampling_divergences`` (:meth:`est_kl_divergence`: O(n²) work
+        a resample).
+
+    The one option of the JAX updater outside this port, ``sharding``,
+    raises :class:`NotImplementedError` when set to anything but ``None``.
     """
 
     def __init__(self, model, n_particles, prior, resample_thresh=0.5,
-                 resampler=None, zero_weight_policy="error",
+                 resampler=None, debug_resampling=False,
+                 track_resampling_divergence=False,
+                 zero_weight_policy="error",
                  zero_weight_thresh=None, canonicalize=True, seed=0,
                  device=DEFAULT_DEVICE, n_mcmc_moves=0,
                  mcmc_proposal_scale=None, compress_mcmc_record=False,
@@ -389,6 +451,8 @@ class SMCUpdater:
                                           and int(waste_free_stages) == 0
                                           and bool(mcmc_canonicalize)))
         self.resampler = resampler
+        self.debug_resampling = bool(debug_resampling)
+        self.track_resampling_divergence = bool(track_resampling_divergence)
         self.zero_weight_policy = zero_weight_policy
         self.zero_weight_thresh = (float(zero_weight_thresh)
                                    if zero_weight_thresh is not None
@@ -502,6 +566,8 @@ class SMCUpdater:
         self._mcmc_log_scale = float(self._mcmc_log_scale0)
         self._mcmc_adapt_t = 0
         self.mcmc_acceptance_record = []
+        self.resampling_divergences = (
+            [] if self.track_resampling_divergence else None)
 
     @property
     def state(self):
@@ -559,6 +625,19 @@ class SMCUpdater:
 
     # -- core update -------------------------------------------------------
 
+    @contextlib.contextmanager
+    def _engine_count(self, k):
+        """Leave the model's ``call_count`` at ``k`` more than before, as
+        the JAX package counts an engine call: likelihood evaluations the
+        engine asked for, one per (outcome, particle, experiment), whatever
+        the eager likelihood calls inside bump themselves (under the JAX
+        package's ``jit`` those land on a copy of the model)."""
+        count = self.model.call_count + k
+        try:
+            yield
+        finally:
+            self.model._call_count = count
+
     def update(self, outcome, expparams, check_for_resample=True):
         """Condition the posterior on one observed outcome (applying the
         zero-weight policy, the ESS-triggered resample and, when
@@ -566,40 +645,95 @@ class SMCUpdater:
         eps = self.model.canonicalize_expparams(expparams, self.device)
         if n_expparams(eps) != 1:
             eps = expparams_at(eps, 0)
-        outcome_t = torch.as_tensor(outcome, device=self.device)
-        self.model._bump("_call_count", self.n_particles)
-        prev_state = self._state
-        new_state, log_norm, was_zero = _update_step(
-            self.model, self.resampler, prev_state, outcome_t, eps,
-            self.resample_thresh, self.zero_weight_thresh, self.generator,
-            check_resample=(bool(check_for_resample)
-                            and self.waste_free_stages == 0))
-        if was_zero:
-            self._handle_zero_weight()
-        if new_state.just_resampled:
-            self._warn_resampler_fallback(
-                int(new_state.resampler_fallback_count
-                    - prev_state.resampler_fallback_count))
-        self._state = new_state
-        self.data_record.append(outcome)
-        self.normalization_record.append(math.exp(log_norm))
-        if self._rejuvenating:
+        self._update_one(outcome, torch.as_tensor(outcome, device=self.device),
+                         eps, bool(check_for_resample))
+
+    def batch_update(self, outcomes, expparams, resample_interval=5):
+        """Condition on a record of (outcome, experiment) pairs, one update
+        step each, checking the ESS only on every ``resample_interval``-th
+        step (``idx % k == k − 1``); ``resample_interval <= 0`` never
+        checks. It equals the loop ``update(o_i, e_i,
+        check_for_resample=(i % k == k − 1))`` to the bit: waste-free
+        resample-move obeys the same gate, moves follow each resample with
+        the record up to and including its step, and a zero-weight step
+        under ``'error'`` raises with every step before it committed.
+
+        The outcomes and experiments come to the device and their record
+        values to the host once for the batch, so a step costs the update
+        step's one device→host copy and no other. Returns the steps'
+        normalizations (float64, host)."""
+        eps = self.model.canonicalize_expparams(expparams, self.device)
+        outcomes_t = torch.atleast_1d(torch.as_tensor(outcomes)).to(
+            self.device)
+        values = outcomes_t.cpu().tolist()
+        eps_host = None
+        if self._rejuvenating and self.compress_mcmc_record:
+            eps_host = {k: v.cpu().numpy() for k, v in eps.items()}
+        k = int(resample_interval)
+        first = len(self.normalization_record)
+        for i in range(len(values)):
+            host = None
+            if eps_host is not None:
+                host = (values[i],
+                        {f: v[i:i + 1] for f, v in eps_host.items()})
+            self._update_one(values[i], outcomes_t[i:i + 1],
+                             expparams_at(eps, i), k > 0 and i % k == k - 1,
+                             host)
+        return np.asarray(self.normalization_record[first:], np.float64)
+
+    def _update_one(self, outcome, outcome_t, eps, check, host=None):
+        """One committed update of :meth:`update` and :meth:`batch_update`:
+        ``outcome`` is the record's value, ``outcome_t`` and ``eps`` (one
+        experiment) are on the device, and ``host`` optionally carries the
+        outcome and experiment as host values for the compressed record.
+        A zero-weight step under ``'error'`` raises before it commits."""
+        with self._engine_count(self.n_particles):
+            prev_state = self._state
+            new_state, log_norm, was_zero = _update_step(
+                self.model, self.resampler, prev_state, outcome_t, eps,
+                self.resample_thresh, self.zero_weight_thresh, self.generator,
+                check_resample=check and self.waste_free_stages == 0)
+            if was_zero:
+                self._handle_zero_weight()
+            if new_state.just_resampled:
+                self._warn_resampler_fallback(
+                    int(new_state.resampler_fallback_count
+                        - prev_state.resampler_fallback_count))
+                self._on_resample_diagnostics(prev_state, new_state)
+            self._state = new_state
+            self.data_record.append(outcome)
+            self.normalization_record.append(math.exp(log_norm))
+            if not self._rejuvenating:
+                return
             self._n_record += 1
             if self.compress_mcmc_record:
                 # the sufficient statistics alone: storing every
                 # experiment would defeat the record's compression
-                self._accumulate_record(outcome, eps)
+                self._accumulate_record(outcome, eps, host)
             else:
                 self._eps_record.append(eps)
             if self.waste_free_stages > 0:
                 # a caller that suppresses the resample gets no waste-free
                 # resample-move either
-                if check_for_resample and (
-                        self.n_ess <= self.resample_thresh
-                        * self._n_particles):
+                if check and (self.n_ess
+                              <= self.resample_thresh * self._n_particles):
                     self._waste_free_now()
             elif new_state.just_resampled:
                 self._rejuvenate_now()
+
+    def _on_resample_diagnostics(self, prev_state, new_state):
+        """The opt-in resampling diagnostics of one resample event
+        (``track_resampling_divergence``, ``debug_resampling``); nothing
+        runs, and nothing syncs, when both are off."""
+        if self.track_resampling_divergence:
+            self.resampling_divergences.append(float(_kl_divergence(
+                prev_state.weights, prev_state.locations,
+                new_state.weights, new_state.locations)))
+        if self.debug_resampling:
+            logging.getLogger(__name__).debug(
+                "resample #%d: n_ess %.1f -> %.1f", new_state.resample_count,
+                float(1.0 / torch.sum(prev_state.weights ** 2)),
+                float(1.0 / torch.sum(new_state.weights ** 2)))
 
     def _warn_resampler_fallback(self, n_slots):
         if n_slots > 0:
@@ -616,6 +750,31 @@ class SMCUpdater:
         if self.zero_weight_policy == "warn":
             warnings.warn(msg + " — weights were reset", ZeroWeightWarning)
         # 'reset': the step already substituted uniform weights
+
+    def resample(self):
+        """Resample now, whatever the ESS, count it, and fire the moves
+        (``n_mcmc_moves``). A resampler that skips its strict projection
+        relies on the moves' one; when no move will project (none
+        configured, an empty record, or ``mcmc_canonicalize=False``), this
+        resample applies ``model.canonicalize`` itself."""
+        st = self._state
+        with self._engine_count(0):
+            new_w, new_x, n_fallback = self.resampler.call_with_diagnostics(
+                self.model, self.generator, st.weights, st.locations)
+            moves_will_project = (self.n_mcmc_moves > 0
+                                  and self.mcmc_canonicalize
+                                  and self._n_record > 0)
+            if (not getattr(self.resampler, "canonicalize", True)
+                    and not moves_will_project):
+                new_x = self.model.canonicalize(new_x)
+            self._warn_resampler_fallback(int(n_fallback))
+            self._state = dataclasses.replace(
+                st, weights=new_w, locations=new_x,
+                resample_count=st.resample_count + 1, just_resampled=True,
+                resampler_fallback_count=(st.resampler_fallback_count
+                                          + n_fallback))
+            if self.n_mcmc_moves > 0:
+                self._rejuvenate_now()
 
     # -- resample-move rejuvenation ----------------------------------------
 
@@ -643,12 +802,14 @@ class SMCUpdater:
         s_inc = o if self._record_is_binomial else (1.0 if o == 0 else 0.0)
         return row, s_inc, float(n_meas)
 
-    def _accumulate_record(self, outcome, eps):
+    def _accumulate_record(self, outcome, eps, host=None):
         """Fold one committed (outcome, experiment) into the per-candidate
-        totals (one device→host copy of the experiment)."""
-        eps_np = {k: v.detach().cpu().numpy() for k, v in eps.items()}
-        o = torch.as_tensor(outcome).reshape(-1)[0].item()
-        row, s_inc, t_inc = self._pool_row_and_increment(o, eps_np)
+        totals: from ``host``, the pair as host values, when given, else
+        with one device→host copy of the experiment."""
+        if host is None:
+            host = (torch.as_tensor(outcome).reshape(-1)[0].item(),
+                    {k: v.detach().cpu().numpy() for k, v in eps.items()})
+        row, s_inc, t_inc = self._pool_row_and_increment(*host)
         self._pool_succ[row] += s_inc
         self._pool_trials[row] += t_inc
 
@@ -694,7 +855,11 @@ class SMCUpdater:
     def _waste_free_now(self):
         """Waste-free resample-move in place of the resample
         (:func:`~qinfer_tpu_torch.rejuvenation.
-        waste_free_rejuvenate_binomial`)."""
+        waste_free_rejuvenate_binomial`); nothing before the first
+        committed experiment. A waste-free kernel is the resample event, so
+        it feeds the resampling diagnostics."""
+        if self._n_record == 0:
+            return
         pool_eps, succ, trials = self._pool_arrays()
         st = self._state
         w, x, _ = rj.waste_free_rejuvenate_binomial(
@@ -707,6 +872,7 @@ class SMCUpdater:
         self._state = dataclasses.replace(
             st, weights=w, locations=x, just_resampled=True,
             resample_count=st.resample_count + 1)
+        self._on_resample_diagnostics(st, self._state)
 
     def _fixed_proposal_scale(self):
         return (2.38 if self.mcmc_proposal_scale is None
@@ -714,8 +880,12 @@ class SMCUpdater:
 
     def _rejuvenate_now(self):
         """``n_mcmc_moves`` Metropolis sweeps targeting prior × record
-        likelihood, after a resample. The adapted scale and the mean
-        acceptance come to the host once per call."""
+        likelihood, after a resample; nothing before the first committed
+        experiment. The adapted scale and the mean acceptance come to the
+        host once per call, and every call appends its acceptance to
+        ``mcmc_acceptance_record``, in batch updates too."""
+        if self._n_record == 0:
+            return
         if self.compress_mcmc_record:
             pool_eps, succ, trials = self._pool_arrays()
             record = (succ, trials, pool_eps)
@@ -758,11 +928,11 @@ class SMCUpdater:
         outcomes = torch.as_tensor(outcomes, device=self.device)
         if outcomes.ndim == 0:
             outcomes = outcomes.reshape(1)
-        self.model._bump("_call_count", outcomes.shape[0] * self.n_particles
-                         * n_expparams(eps))
-        norm_w, L, norms = _hypothetical_update(
-            self.model, self._state.weights, self._state.locations, outcomes,
-            eps)
+        with self._engine_count(outcomes.shape[0] * self.n_particles
+                                * n_expparams(eps)):
+            norm_w, L, norms = _hypothetical_update(
+                self.model, self._state.weights, self._state.locations,
+                outcomes, eps)
         out = (norm_w,)
         if return_likelihood:
             out = out + (L,)
@@ -776,11 +946,11 @@ class SMCUpdater:
         one score per candidate experiment, on the device, with no
         device→host copy."""
         eps = self.model.canonicalize_expparams(expparams, self.device)
-        self.model._bump("_call_count", self.model.n_outcomes(eps)
-                         * self.n_particles * n_expparams(eps))
-        return score_candidates(score_fn, self.model, self._state.weights,
-                                self._state.locations, eps, extra_args,
-                                candidate_chunk)
+        with self._engine_count(self.model.n_outcomes(eps)
+                                * self.n_particles * n_expparams(eps)):
+            return score_candidates(score_fn, self.model, self._state.weights,
+                                    self._state.locations, eps, extra_args,
+                                    candidate_chunk)
 
     def bayes_risk(self, expparams, candidate_chunk=None):
         """Expected posterior Q-loss of each candidate experiment;
@@ -809,3 +979,198 @@ class SMCUpdater:
             std = torch.sqrt(torch.clamp_min(torch.diag(cov), EPS))
             cov = cov / std[:, None] / std[None, :]
         return cov
+
+    def est_meanfn(self, fn):
+        """Posterior mean of ``fn``, which maps one (d,) location to a
+        tensor or a tuple, list or dict of them (vectorized with
+        :func:`torch.func.vmap`)."""
+        return particle_meanfn(self._state.weights, self._state.locations,
+                               fn)
+
+    def est_entropy(self):
+        """Entropy −Σ wᵢ log wᵢ of the particle weights (0-d tensor)."""
+        return _entropy(self._state.weights)
+
+    def est_kl_divergence(self, other, kernel_bandwidth=None):
+        """KL divergence D(self ‖ other) between two particle posteriors,
+        through Gaussian kernel density estimates (bandwidth by Silverman's
+        rule on ``other``'s covariance unless given), a block of at most
+        2²² (block, n, d) differences at a time (0-d tensor)."""
+        return _kl_divergence(self._state.weights, self._state.locations,
+                              other.particle_weights,
+                              other.particle_locations, kernel_bandwidth)
+
+    def sample(self, n=1, generator=None):
+        """``n`` particles drawn ∝ their weights, on the updater's
+        generator unless one is given: (n, d)."""
+        g = self.generator if generator is None else generator
+        idx = torch.multinomial(torch.clamp_min(self._state.weights, EPS), n,
+                                replacement=True, generator=g)
+        return self._state.locations[idx]
+
+    def posterior_distribution(self):
+        """The current posterior as a :class:`~qinfer_tpu_torch.
+        distributions.ParticleDistribution` (a warm start for another
+        updater)."""
+        return ParticleDistribution(self._state.locations,
+                                    self._state.weights)
+
+    # -- region estimation -------------------------------------------------
+
+    def est_credible_region(self, level=0.95, return_outside=False,
+                            modelparam_slice=None):
+        """The smallest set of particles that holds ``level`` of the
+        posterior mass: sorted by weight on the device (a stable
+        descending sort, so equal weights keep their index order, as the
+        JAX package's ``argsort(-w)``), the mass summed in float64 on the
+        host. Returns the (k, d) NumPy points (and the rest with
+        ``return_outside``)."""
+        w = self._state.weights
+        x = self._state.locations
+        if modelparam_slice is not None:
+            x = x[:, modelparam_slice]
+        sorted_w, order = torch.sort(w, descending=True, stable=True)
+        cmass = np.cumsum(sorted_w.cpu().numpy().astype(np.float64))
+        k = min(int(np.searchsorted(cmass, level)) + 1, w.shape[0])
+        x_sorted = x[order].cpu().numpy()
+        if return_outside:
+            return x_sorted[:k], x_sorted[k:]
+        return x_sorted[:k]
+
+    def region_est_hull(self, level=0.95, modelparam_slice=None):
+        """The credible set's convex hull: ``(vertices, hull)``, the hull a
+        ``scipy.spatial.ConvexHull`` (``(endpoints, None)`` in one
+        dimension)."""
+        from scipy.spatial import ConvexHull
+
+        pts = self.est_credible_region(level,
+                                       modelparam_slice=modelparam_slice)
+        if pts.shape[1] == 1:
+            return np.array([[pts.min()], [pts.max()]]), None
+        hull = ConvexHull(pts)
+        return pts[hull.vertices], hull
+
+    def region_est_ellipsoid(self, level=0.95, tol=1e-4,
+                             modelparam_slice=None):
+        """The minimum-volume ellipsoid around the credible hull: ``(A,
+        c)``, the ellipsoid {x : (x−c)ᵀ A (x−c) ≤ 1}."""
+        vertices, _ = self.region_est_hull(
+            level, modelparam_slice=modelparam_slice)
+        return mvee(vertices, tol=tol)
+
+    def in_credible_region(self, points, level=0.95, modelparam_slice=None,
+                           method="hpd_hull", tol=1e-4):
+        """Whether each point lies in the credible region: ``'hpd_hull'``
+        (inside the credible set's hull, by Delaunay), ``'hpd_mvee'``
+        (inside the hull's MVEE) or ``'est_cov'`` (inside the covariance
+        ellipsoid scaled to ``level`` by the chi-square quantile)."""
+        points = np.atleast_2d(np.asarray(points))
+        if method == "est_cov":
+            from scipy.stats import chi2
+
+            x = self._state.locations
+            if modelparam_slice is not None:
+                x = x[:, modelparam_slice]
+            mu, cov = weighted_moments(self._state.weights, x)
+            scale = chi2.ppf(level, df=x.shape[1])
+            return in_ellipsoid(points, scale * cov.cpu().numpy(),
+                                mu.cpu().numpy())
+        if method == "hpd_hull":
+            from scipy.spatial import Delaunay
+
+            pts = self.est_credible_region(
+                level, modelparam_slice=modelparam_slice)
+            if pts.shape[1] == 1:
+                return ((points[:, 0] >= pts.min())
+                        & (points[:, 0] <= pts.max()))
+            return Delaunay(pts).find_simplex(points) >= 0
+        if method == "hpd_mvee":
+            A, c = self.region_est_ellipsoid(
+                level, tol=tol, modelparam_slice=modelparam_slice)
+            # mvee's A is the inverse of in_ellipsoid's shape matrix
+            return in_ellipsoid(points, np.linalg.inv(A), c)
+        raise ValueError(f"unknown method {method!r}")
+
+    def posterior_marginal(self, idx_param=0, res=100, smoothing=0.0,
+                           range_min=None, range_max=None):
+        """Weighted-histogram estimate of one parameter's marginal density:
+        ``(bin centers, density)``, NumPy; ``smoothing`` is a Gaussian
+        filter's width in bins."""
+        w = self._state.weights.cpu().numpy()
+        x = self._state.locations[:, idx_param].cpu().numpy()
+        lo = range_min if range_min is not None else x.min()
+        hi = range_max if range_max is not None else x.max()
+        if hi <= lo:
+            hi = lo + 1e-6
+        hist, edges = np.histogram(x, bins=res, range=(lo, hi), weights=w,
+                                   density=True)
+        centers = 0.5 * (edges[1:] + edges[:-1])
+        if smoothing > 0:
+            from scipy.ndimage import gaussian_filter1d
+
+            hist = gaussian_filter1d(hist, smoothing)
+        return centers, hist
+
+
+class SMCUpdaterBCRB(SMCUpdater):
+    """An updater that also accumulates the Bayesian information matrix
+    and so the Bayesian Cramér-Rao bound. It needs a
+    :class:`~qinfer_tpu_torch.abstract_model.DifferentiableModel`: before
+    each update, the Fisher information of the experiment, averaged over
+    the current posterior (``adaptive=True``) or the prior ensemble drawn
+    at construction, is added to ``current_bim`` (float64, host).
+    ``current_bcrb`` is its pseudo-inverse. The prior's term comes from its
+    ``grad_log_pdf`` (E[∇log π ∇log πᵀ] over the ensemble; zero for a
+    prior without one) unless ``initial_bim`` is given. Other arguments
+    are :class:`SMCUpdater`'s, the card by default.
+    """
+
+    def __init__(self, model, n_particles, prior, adaptive=False,
+                 initial_bim=None, **kwargs):
+        if not isinstance(model, DifferentiableModel):
+            raise ValueError("SMCUpdaterBCRB requires a DifferentiableModel")
+        super().__init__(model, n_particles, prior, **kwargs)
+        self.adaptive = bool(adaptive)
+        self._initial_weights = self._state.weights
+        self._initial_locations = self._state.locations
+        self._current_bim = np.asarray(
+            self._prior_bim() if initial_bim is None else initial_bim,
+            dtype=np.float64)
+
+    def _prior_bim(self):
+        d = self.model.n_modelparams
+        glp = getattr(self.prior, "grad_log_pdf", None)
+        if glp is None:
+            return np.zeros((d, d))
+        g = torch.as_tensor(glp(self._state.locations))
+        g = torch.atleast_2d(g).expand(-1, d)
+        w = self._state.weights
+        return torch.einsum("n,ni,nj->ij", w, g, g).cpu().numpy()
+
+    @property
+    def current_bim(self):
+        """The accumulated Bayesian information matrix, (d, d) float64."""
+        return self._current_bim
+
+    @property
+    def current_bcrb(self):
+        """pinv(BIM): the Bayesian Cramér-Rao bound on the posterior
+        covariance. The pseudo-inverse, since the BIM is singular until
+        the experiments identify every parameter when the prior adds
+        nothing."""
+        return np.linalg.pinv(self._current_bim)
+
+    def update(self, outcome, expparams, check_for_resample=True):
+        eps = self.model.canonicalize_expparams(expparams, self.device)
+        if n_expparams(eps) != 1:
+            # only the first experiment is consumed, as in SMCUpdater:
+            # no Fisher information of the columns it drops
+            eps = expparams_at(eps, 0)
+        if self.adaptive:
+            w, locs = self._state.weights, self._state.locations
+        else:
+            w, locs = self._initial_weights, self._initial_locations
+        fi = self.model.fisher_information(locs, eps)  # (d, d, n, 1)
+        self._current_bim = self._current_bim + torch.einsum(
+            "ijnE,n->ij", fi, w).cpu().numpy().astype(np.float64)
+        super().update(outcome, eps, check_for_resample=check_for_resample)

@@ -638,3 +638,58 @@ def test_design_scoring_and_selection_never_wait_for_the_card(_card):
     assert all(p.is_cuda and p.shape == () for p in picks)
     assert scores.shape == (256,) and bool(torch.isfinite(scores).all())
     assert pool_idx.is_cuda and pool_eps["prep"].shape == (1, 16)
+
+
+def test_batch_update_is_the_update_loop_on_the_card(_card):
+    """BASELINE configs 2 and 3 (``models_bench``'s record, one repeat) at
+    20 000 particles: ``batch_update`` equals the loop of ``update`` calls
+    to the bit on the card, and K3 fills every resample of the batch."""
+    import warnings
+
+    from qinfer_tpu_torch import ResamplerWarning, SMCUpdater
+    from qinfer_tpu_torch.models_bench import make_configs
+
+    k = 3
+    for cfg in make_configs(1):
+        a, b = (SMCUpdater(cfg.model, 20_000, cfg.prior, seed=3,
+                           device=_card) for _ in range(2))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", ResamplerWarning)
+            sr.streaming_resample_locations.launches = 0
+            a.batch_update(cfg.counts, cfg.eps, resample_interval=k)
+            launches = sr.streaming_resample_locations.launches
+            for i, c in enumerate(cfg.counts):
+                b.update(int(c), {f: v[i:i + 1] for f, v in cfg.eps.items()},
+                         check_for_resample=(i % k == k - 1))
+        assert a.resample_count == b.resample_count >= 1
+        assert launches == a.resample_count
+        assert a.particle_weights.is_cuda
+        assert torch.equal(a.particle_weights, b.particle_weights)
+        assert torch.equal(a.particle_locations, b.particle_locations)
+        assert a.normalization_record == b.normalization_record
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_bcrb_on_the_card_is_finite_and_psd(_card, adaptive):
+    """``SMCUpdaterBCRB`` on the Ramsey model at 50 000 particles: the
+    per-particle autograd Fisher information runs on the card, and the
+    accumulated information matrix is finite, symmetric and positive
+    semidefinite, its pseudo-inverse finite."""
+    from qinfer_tpu_torch import RamseyModel, SMCUpdaterBCRB
+    from qinfer_tpu_torch import UniformDistribution
+
+    u = SMCUpdaterBCRB(RamseyModel(), 50_000,
+                       UniformDistribution([[0.0, 1.0], [0.0, 0.5]]),
+                       adaptive=adaptive, device=_card)
+    g = _gen(4)
+    for j in range(16):
+        t = 1.3 ** j
+        o = int(torch.randint(0, 2, (), generator=g, device=_card))
+        u.update(o, {"t": torch.full((1,), t, device=_card)})
+    bim = u.current_bim
+    assert bim.shape == (2, 2) and bim.dtype.name == "float64"
+    assert bool(torch.isfinite(torch.as_tensor(bim)).all())
+    assert abs(bim[0, 1] - bim[1, 0]) <= 1e-6 * abs(bim).max()
+    ev = torch.linalg.eigvalsh(torch.as_tensor(bim))
+    assert float(ev.min()) >= -1e-6 * float(ev.abs().max())
+    assert bool(torch.isfinite(torch.as_tensor(u.current_bcrb)).all())

@@ -26,7 +26,8 @@ def test_importing_the_port_leaves_jax_out():
             "qinfer_tpu_torch.tomography_bench, qinfer_tpu_torch.expdesign, "
             "qinfer_tpu_torch.expdesign_bench, "
             "qinfer_tpu_torch.finite_difference, "
-            "qinfer_tpu_torch.horizon_bench; "
+            "qinfer_tpu_torch.horizon_bench, qinfer_tpu_torch.rb, "
+            "qinfer_tpu_torch.simple_est, qinfer_tpu_torch.models_bench; "
             "print(sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'qinfer_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

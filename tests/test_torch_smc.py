@@ -215,19 +215,21 @@ def test_entry_points_run_on_the_card_by_default(entry):
 
 
 def test_updater_refuses_options_outside_the_port():
-    """The JAX updater's options that the port does not have yet raise
-    NotImplementedError unless "off"; unknown keywords raise TypeError."""
+    """The one JAX updater option that the port does not have yet,
+    ``sharding``, raises NotImplementedError unless "off"; unknown keywords
+    raise TypeError; the resampling diagnostics are ported."""
     args = (qt.SimplePrecessionModel(), 10,
             qt.UniformDistribution([[0.0, 1.0]]))
     cpu = {"device": "cpu"}
-    for kw in ({"sharding": object()}, {"debug_resampling": True},
-               {"track_resampling_divergence": True}):
-        with pytest.raises(NotImplementedError):
-            qt.SMCUpdater(*args, **kw, **cpu)
+    with pytest.raises(NotImplementedError):
+        qt.SMCUpdater(*args, sharding=object(), **cpu)
     with pytest.raises(TypeError):
         qt.SMCUpdater(*args, no_such_option=1, **cpu)
     qt.SMCUpdater(*args, sharding=None, debug_resampling=False,
                   track_resampling_divergence=False, **cpu)  # "off" is fine
+    u = qt.SMCUpdater(*args, debug_resampling=True,
+                      track_resampling_divergence=True, **cpu)
+    assert u.debug_resampling and u.resampling_divergences == []
 
 
 def test_eig_is_the_one_bench_flag_still_refused():
