@@ -53,6 +53,20 @@ one line, and any failure exits non-zero without the final ``ok`` line:
    credible set, hull vertices and MVEE finite, and whether the truth lies
    in its ``hpd_mvee`` region; then ``simple_est_rb`` at its defaults on a
    synthetic record (K3 once per resample).
+   Then the item-8 phase (``item8_bench``): drift tracking under a fixed
+   and a learned random walk (50 000 particles x 1000 steps, K3 at d = 1
+   and 2), the multinomial die (50 000 x 200 experiments of 100 rolls, K3
+   at d = 6; the ESS checked every step, and every 5th step for
+   context), ALE (50 000 x 200 single shots, adaptive rounds a step),
+   referenced-Poisson readout (50 000 x 300, K3 at d = 3) with one
+   ``MLEModel`` and one ``PoisonedModel`` step, and GADFLI-prior
+   two-qubit state tomography (100 000 x 200: K3 at d = 15, K4 once per
+   gated projection) with a Ginibre-prior run beside it; each run's
+   launches counted, its state finite, its checks held (4 sd, the die's
+   ``max_z_vs_true``, fresh ALE noise, fidelity above the prior mean's)
+   and K3 bit-exact on its first resample; K3's times at the new d go
+   under its ``other_shapes``, K4's launches on the GADFLI run under
+   ``launches_item8_gadfli``.
    Then one more precession run records the largest |ω·t/2| that K1
    meets, and K1 is checked on that step's particles and t;
 6. timing: each kernel's time against its plain version's and, where one
@@ -1254,6 +1268,122 @@ def run_models_path(torch, dev, card):
     return entries
 
 
+#: the item-8 phase: the kernels a run may launch besides K3, and the runs
+#: that may end without a resample (one step each)
+ITEM8_EXTRA_KERNELS = {"tomography_gadfli": {"jacobi_project_lanes"},
+                       "tomography_ginibre": {"jacobi_project_lanes"}}
+ITEM8_MAY_SKIP_RESAMPLE = {"poisson_mle_step", "poisson_poisoned_step"}
+
+
+def run_item8_path(torch, dev, card):
+    """Phase 5: the item-8 runs (``item8_bench.run_all``: drift tracking
+    with a fixed and a learned walk, the multinomial die, ALE,
+    referenced-Poisson readout with one MLE and one poisoned step, and
+    GADFLI-prior two-qubit state tomography with a Ginibre run beside it),
+    with every launch count set to 0 just before each timed loop and read
+    just after. Each run: K3 once per resample (at least once for the five
+    runs), no other kernel but K4 on the tomography runs, where K4
+    launches once per gated projection; a finite state; the run's own
+    checks (``bars``: |mean − truth| ≤ 4 sd, ``max_z_vs_true`` ≤ 4, the
+    ALE twin steps' normalizations differing, the GADFLI run's fidelity
+    above its prior mean's); K3 bit-exact on its first resample. Returns
+    K3's timing entries at the runs' new shapes, and K4's launches on the
+    GADFLI run."""
+    import numpy as np
+    from qinfer_tpu_torch import item8_bench as ib
+    from qinfer_tpu_torch.ops import streaming_resample as sr
+
+    counted = counted_wrappers()
+    recorders = []
+
+    def zero_counts():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read_counts(rec):
+        rec["launches"] = {name: fn.launches for name, fn in counted.items()}
+
+    def make_resampler():
+        recorders.append(_recording_resampler(torch))
+        return recorders[-1]
+
+    t0 = time.perf_counter()
+    records = ib.run_all(ib.N_PARTICLES, ib.N_TOMO, dev,
+                         make_resampler=make_resampler,
+                         before_run=zero_counts, after_run=read_counts)
+    phase_wall = time.perf_counter() - t0
+    require(len(records) == len(recorders), "item 8: one resampler a run")
+    entries, shapes, k4_launches = [], set(), None
+    for rec, recorder in zip(records, recorders):
+        name, launches = rec["run"], rec["launches"]
+        u = rec["updater"]
+        k3 = launches["streaming_resample_locations"]
+        require(k3 == rec["resamples"] == recorder.calls,
+                f"item 8 {name}: K3 launched {k3} times for "
+                f"{rec['resamples']} resamples")
+        require(k3 >= 1 or name in ITEM8_MAY_SKIP_RESAMPLE,
+                f"item 8 {name}: no resample")
+        allowed = {"streaming_resample_locations"} | ITEM8_EXTRA_KERNELS.get(
+            name, set())
+        require(all(v == 0 for k, v in launches.items() if k not in allowed),
+                f"item 8 {name} launched another path's kernel: {launches}")
+        if "projections" in rec:
+            require(launches["jacobi_project_lanes"] == rec["projections"],
+                    f"item 8 {name}: K4 launched "
+                    f"{launches['jacobi_project_lanes']} times for "
+                    f"{rec['projections']} gated projections")
+            if name == "tomography_gadfli":
+                k4_launches = launches["jacobi_project_lanes"]
+        st = u.state
+        require(bool(torch.isfinite(st.weights).all())
+                and bool(torch.isfinite(st.locations).all())
+                and math.isfinite(u.log_total_likelihood),
+                f"item 8 {name}: NaN or inf in the state")
+        for what, value, bar, ok in rec["bars"]:
+            require(ok, f"item 8 {name}: {what} = {value} against {bar}")
+        if recorder.first is not None:
+            m, starts, x = _replay_fill(torch, dev, recorder.first,
+                                        f"item 8 {name}")
+            nn, d = x.shape
+            if d not in shapes:
+                shapes.add(d)
+                entries.append(timed(
+                    f"streaming_resample_locations n={nn}, d={d} (item 8, "
+                    f"{name}'s first resample)",
+                    lambda m=m, s=starts, x=x:
+                        sr.streaming_resample_locations(m, s, x),
+                    lambda m=m, s=starts, x=x:
+                        sr.streaming_resample_locations_plain(m, s, x),
+                    library=lambda m=m, x=x, nn=nn: torch.repeat_interleave(
+                        x, m, dim=0, output_size=nn),
+                    bound_at=bound(4 * nn + 8 * nn * d, 0),
+                    attach=dict(kernel="streaming_resample_locations",
+                                launches=k3)))
+        extra = {k: rec[k] for k in (
+            "truth", "est", "learned_sigma", "max_z_vs_true", "min_n_ess",
+            "redraw_rounds", "n_samples", "twin_normalizations",
+            "last_signal_t", "fidelity", "prior_fidelity", "projections")
+            if k in rec}
+        if "rounds_per_step" in rec:
+            r = np.asarray(rec["rounds_per_step"])
+            extra["ale_rounds_per_step"] = (
+                f"min {r.min()}, mean {r.mean():.2f}, max {r.max()} over "
+                f"{r.size} steps ({int(r.sum())} rounds, one host sync "
+                f"each)")
+        say("main", f"item 8 {name}: {rec['wall_s']:.4f} s for "
+                    f"{rec['n_particles']} particles x {rec['steps']} steps "
+                    f"= {rec['particle_updates_per_s']:.6g} "
+                    f"particle-updates/s, {rec['resamples']} resamples, "
+                    f"launches {launches}, K3 bit-exact on the first "
+                    f"resample; {json.dumps(extra, default=str)}; bars "
+                    f"{rec['bars']} on {card}")
+    require(k4_launches is not None and k4_launches >= 1,
+            "item 8: K4 did not run on the GADFLI tomography run")
+    say("main", f"item 8: {len(records)} runs in {phase_wall:.1f} s with "
+                f"their set-up on {card}")
+    return entries, k4_launches
+
+
 def main(argv):
     kernels_only = argv == ["--kernels-only"]
     require(not argv or kernels_only,
@@ -1318,6 +1448,8 @@ def main(argv):
                    label="eig flagship")
     extra.append(run_config5(torch, dev, card))
     extra.extend(run_models_path(torch, dev, card))
+    item8_entries, item8_k4 = run_item8_path(torch, dev, card)
+    extra.extend(item8_entries)
     extra.append(late_step_k1(torch, dev)[0])
     results = time_kernels(timers + jac_timers, extra + jac_extra)
     require("jax" not in sys.modules, "JAX was imported")
@@ -1329,6 +1461,8 @@ def main(argv):
     for r in results:
         path = path_of.get(r["name"])
         r["launches"] = (path_launches[path] if path else launches)[r["name"]]
+    next(r for r in results if r["name"] == "jacobi_project_lanes")[
+        "launches_item8_gadfli"] = item8_k4
     print(json.dumps({"kernels": results}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -13,39 +13,81 @@ scores, selection policies, the pool and field designers;
 ``expdesign_bench``) and batch estimation (``SMCUpdater.batch_update``,
 the posterior and region estimators, ``SMCUpdaterBCRB``, differentiable
 models, the Ramsey and randomized-benchmarking models, ``simple_est``,
-``perf_test_multiple`` and ``models_bench``), with the hot kernels
-hand-written in CUDA for Hopper (:mod:`qinfer_tpu_torch.ops`). Module
-names mirror the JAX package. Importing the package builds no kernel and
-imports no JAX.
+``perf_test_multiple`` and ``models_bench``) and the remaining models,
+distributions and heuristics (the derived models, vector-outcome
+``MultinomialModel``, approximate likelihood estimation in :mod:`.ale`,
+the prior families, ``ExpSparseHeuristic``, the GADFLI prior;
+``item8_bench``), with the hot kernels hand-written in CUDA for Hopper
+(:mod:`qinfer_tpu_torch.ops`). Module names mirror the JAX package.
+Importing the package builds no kernel and imports no JAX.
 """
 
 from .config import EPS
-from ._exceptions import ResamplerWarning, ZeroWeightError, ZeroWeightWarning
-from .domains import Domain, IntegerDomain, RealDomain
+from ._exceptions import (ApproximationWarning, ResamplerWarning,
+                          ZeroWeightError, ZeroWeightWarning)
+from .domains import Domain, IntegerDomain, MultinomialDomain, RealDomain
 from .abstract_model import (DifferentiableModel, FiniteOutcomeModel, Model,
                              ScoreMixin, Simulatable)
-from .distributions import (Distribution, ParticleDistribution,
-                            PostselectedDistribution, UniformDistribution)
-from .test_models import (CoinModel, MultiCosineModel, RamseyModel,
+from .distributions import (
+    BetaBinomialDistribution,
+    BetaDistribution,
+    ConstantDistribution,
+    ConstrainedSumDistribution,
+    DiscreteUniformDistribution,
+    Distribution,
+    GammaDistribution,
+    GinibreUniform,
+    HaarUniform,
+    HilbertSchmidtUniform,
+    InterpolatedUnivariateDistribution,
+    LogNormalDistribution,
+    MixtureDistribution,
+    MultivariateNormalDistribution,
+    MVUniformDistribution,
+    NormalDistribution,
+    ParticleDistribution,
+    PostselectedDistribution,
+    ProductDistribution,
+    SingleSampleMixin,
+    SlantedNormalDistribution,
+    UniformDistribution,
+)
+from .test_models import (CoinModel, MultiCosineModel, NDieModel,
+                          NoisyCoinModel, RamseyModel, SimpleInversionModel,
                           SimplePrecessionModel)
-from .derived_models import BinomialModel, DerivedModel
+from .derived_models import (BinomialModel, DerivedModel,
+                             GaussianRandomWalkModel, MLEModel,
+                             MultinomialModel, PoisonedModel,
+                             RandomWalkModel, ReferencedPoissonModel)
+from .ale import ALEApproximateModel, binom_est_error, binom_est_p
 from .rb import F_to_p, RandomizedBenchmarkingModel, p_to_F
 from .utils import (
+    assert_sigfigs_equal,
     binomial_pdf,
+    compactspace,
     ellipsoid_volume,
+    format_uncertainty,
+    from_simplex,
     in_ellipsoid,
+    join_struct_arrays,
     log_binomial_pdf,
+    multinomial_pdf,
     mvee,
     n_ess,
+    outer_product,
     particle_covariance_mtx,
     particle_mean,
     particle_meanfn,
+    safe_shape,
+    sample_multinomial,
     sqrtm_psd,
+    to_simplex,
+    uniquify,
     weighted_moments,
 )
 from .resamplers import LiuWestResampler, Resampler
 from .smc import SMCState, SMCUpdater, SMCUpdaterBCRB
-from .heuristics import PGH, Heuristic
+from .heuristics import PGH, ExpSparseHeuristic, Heuristic, IdentityHeuristic
 from .finite_difference import FiniteDifference
 from .expdesign import (ExperimentDesigner, OptimizationAlgorithms,
                         PoolDesigner, design_from_candidates,
@@ -57,11 +99,13 @@ from . import rejuvenation, tomography
 
 __all__ = [
     "EPS",
+    "ApproximationWarning",
     "ResamplerWarning",
     "ZeroWeightError",
     "ZeroWeightWarning",
     "Domain",
     "IntegerDomain",
+    "MultinomialDomain",
     "RealDomain",
     "Simulatable",
     "Model",
@@ -69,20 +113,61 @@ __all__ = [
     "DifferentiableModel",
     "ScoreMixin",
     "Distribution",
+    "SingleSampleMixin",
     "UniformDistribution",
+    "DiscreteUniformDistribution",
+    "MVUniformDistribution",
+    "ConstantDistribution",
+    "NormalDistribution",
+    "MultivariateNormalDistribution",
+    "SlantedNormalDistribution",
+    "LogNormalDistribution",
+    "BetaDistribution",
+    "BetaBinomialDistribution",
+    "GammaDistribution",
+    "InterpolatedUnivariateDistribution",
+    "ProductDistribution",
+    "MixtureDistribution",
     "PostselectedDistribution",
+    "ConstrainedSumDistribution",
     "ParticleDistribution",
+    "HaarUniform",
+    "GinibreUniform",
+    "HilbertSchmidtUniform",
     "SimplePrecessionModel",
+    "SimpleInversionModel",
     "CoinModel",
+    "NoisyCoinModel",
+    "NDieModel",
     "MultiCosineModel",
     "RamseyModel",
     "DerivedModel",
+    "PoisonedModel",
     "BinomialModel",
+    "MultinomialModel",
+    "MLEModel",
+    "RandomWalkModel",
+    "GaussianRandomWalkModel",
+    "ReferencedPoissonModel",
+    "ALEApproximateModel",
+    "binom_est_p",
+    "binom_est_error",
     "RandomizedBenchmarkingModel",
     "p_to_F",
     "F_to_p",
     "binomial_pdf",
     "log_binomial_pdf",
+    "multinomial_pdf",
+    "sample_multinomial",
+    "outer_product",
+    "to_simplex",
+    "from_simplex",
+    "uniquify",
+    "assert_sigfigs_equal",
+    "format_uncertainty",
+    "compactspace",
+    "safe_shape",
+    "join_struct_arrays",
     "n_ess",
     "particle_covariance_mtx",
     "particle_mean",
@@ -99,6 +184,8 @@ __all__ = [
     "SMCUpdaterBCRB",
     "Heuristic",
     "PGH",
+    "ExpSparseHeuristic",
+    "IdentityHeuristic",
     "FiniteDifference",
     "ExperimentDesigner",
     "OptimizationAlgorithms",

@@ -1,7 +1,13 @@
 """Warnings and exceptions of the port (counterparts of
 :mod:`qinfer_tpu._exceptions` used on the SMC main path)."""
 
-__all__ = ["ResamplerWarning", "ZeroWeightWarning", "ZeroWeightError"]
+__all__ = ["ApproximationWarning", "ResamplerWarning", "ZeroWeightWarning",
+           "ZeroWeightError"]
+
+
+class ApproximationWarning(RuntimeWarning):
+    """Emitted when an approximate likelihood cannot reach its requested
+    accuracy (an ALE sample cap below the budget ``error_tol`` needs)."""
 
 
 class ResamplerWarning(RuntimeWarning):

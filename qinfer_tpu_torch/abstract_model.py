@@ -12,6 +12,10 @@
   device is the device the draw lands on.
 * A time-dependent model overrides ``update_timestep``, which the engine
   then runs after every reweighting (``is_time_dependent``).
+* A model whose likelihood is a Monte-Carlo estimate sets
+  ``wants_likelihood_key = True``; the engine then passes
+  ``generator=`` (a :class:`torch.Generator`) to every ``likelihood``
+  call it makes, so the noise is fresh on every call.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from .config import EPS
 from .domains import IntegerDomain
 
 __all__ = [
+    "keyed_kwargs",
     "Simulatable",
     "Model",
     "FiniteOutcomeModel",
@@ -33,6 +38,16 @@ __all__ = [
     "expparams_at",
     "atleast_2d",
 ]
+
+
+def keyed_kwargs(model, generator):
+    """The keyword arguments of an engine likelihood call: ``generator=``
+    for a model whose likelihood draws Monte-Carlo noise
+    (``wants_likelihood_key``) when a generator is given, else none."""
+    if generator is not None and getattr(model, "wants_likelihood_key",
+                                         False):
+        return {"generator": generator}
+    return {}
 
 
 def atleast_2d(x):
@@ -92,6 +107,10 @@ class Simulatable:
     def __init__(self):
         self._sim_count = 0
         self._call_count = 0
+
+    #: dimensions of ONE outcome: 0 for scalar outcomes, 1 for vectors
+    #: (``MultinomialModel``'s count vectors)
+    outcome_ndim = 0
 
     @property
     def n_modelparams(self):

@@ -1,5 +1,6 @@
 """Experiment-design heuristics (counterpart of
-:mod:`qinfer_tpu.heuristics`: ``Heuristic`` and ``PGH``).
+:mod:`qinfer_tpu.heuristics`: ``Heuristic``, ``PGH``,
+``ExpSparseHeuristic`` and ``IdentityHeuristic``).
 
 Every heuristic has a pure form ``propose(generator, weights, locations,
 idx_exp) -> expparams dict`` that stays on the particles' device (no
@@ -9,11 +10,14 @@ which draws from the bound updater's generator.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from .abstract_model import _field
 from .config import EPS
 
-__all__ = ["Heuristic", "PGH", "categorical_inverse_cdf"]
+__all__ = ["Heuristic", "PGH", "ExpSparseHeuristic", "IdentityHeuristic",
+           "categorical_inverse_cdf"]
 
 
 def categorical_inverse_cdf(generator, weights):
@@ -109,3 +113,51 @@ class PGH(Heuristic):
             eps[fname] = torch.as_tensor(val, device=locations.device
                                          ).reshape(-1)
         return eps
+
+
+class ExpSparseHeuristic(Heuristic):
+    """Exponentially sparse, non-adaptive times t_k = scale · base^k
+    (``qinfer_tpu/heuristics.py:125``), computed in float32 log space and
+    capped at e^60 ≈ 1.1e26: base^k overflows float32 at k ≥ 128 for
+    base 2, and cos(inf) would turn the posterior to NaN. The time is
+    worked out on the host and written on the particles' device by a fill
+    (no host→device copy)."""
+
+    def __init__(self, updater, scale=1.0, base=2.0, t_field="t",
+                 other_fields=None):
+        super().__init__(updater)
+        self.scale = float(scale)
+        self.base = float(base)
+        self.t_field = t_field
+        self.other_fields = dict(other_fields or {})
+
+    def time(self, idx_exp):
+        """t at experiment ``idx_exp`` (a float32 NumPy scalar)."""
+        f32 = np.float32
+        log_t = (np.log(f32(self.scale))
+                 + f32(int(idx_exp)) * np.log(f32(self.base)))
+        return np.exp(np.minimum(log_t, f32(60.0)))
+
+    def propose(self, generator, weights, locations, idx_exp):
+        dev = locations.device
+        eps = {self.t_field: torch.full((1,), float(self.time(idx_exp)),
+                                        dtype=torch.float32, device=dev)}
+        for fname, val in self.other_fields.items():
+            eps[fname] = torch.as_tensor(val, device=dev).reshape(-1)
+        return eps
+
+
+class IdentityHeuristic(Heuristic):
+    """Always the same experiment (``qinfer_tpu/heuristics.py:153``), kept
+    on each device it is asked for once."""
+
+    def __init__(self, updater, expparams):
+        super().__init__(updater)
+        self.expparams = {k: _field(v) for k, v in expparams.items()}
+        self._on = {}
+
+    def propose(self, generator, weights, locations, idx_exp):
+        dev = locations.device
+        if dev not in self._on:
+            self._on[dev] = {k: v.to(dev) for k, v in self.expparams.items()}
+        return self._on[dev]

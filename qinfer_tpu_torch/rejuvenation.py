@@ -30,6 +30,7 @@ import math
 
 import torch
 
+from .abstract_model import keyed_kwargs
 from .derived_models import BinomialModel
 from .resamplers import counting_multiplicities_from_u
 from .utils import sqrtm_psd
@@ -86,50 +87,54 @@ def resolve_prior_log_pdf(prior):
 
 
 def _record_groups(outcomes, eps_record, mask):
-    """The observed record steps grouped by outcome value, in chunks of at
-    most ``_RECORD_CHUNK`` steps: ``[(outcome (1,), expparams of the
+    """The observed record steps grouped by outcome value (a scalar, or a
+    whole count vector for vector outcomes), in chunks of at most
+    ``_RECORD_CHUNK`` steps: ``[(outcome (1,) or (1, k), expparams of the
     chunk's steps)]``. One host synchronization (the outcomes and the
     mask)."""
     outcomes = torch.as_tensor(outcomes)
     mask = torch.as_tensor(mask, device=outcomes.device).to(torch.bool)
-    values = outcomes.reshape(outcomes.shape[0], -1)[:, 0]
-    host = values.cpu().tolist()
+    host = outcomes.reshape(outcomes.shape[0], -1).cpu().tolist()
     keep = mask.cpu().tolist()
     by_value = {}
     for k, (v, m) in enumerate(zip(host, keep)):
         if m:
-            by_value.setdefault(v, []).append(k)
+            by_value.setdefault(tuple(v), []).append(k)
     groups = []
     for steps in by_value.values():
         for c in range(0, len(steps), _RECORD_CHUNK):
             idx = torch.tensor(steps[c:c + _RECORD_CHUNK],
                                device=outcomes.device)
-            groups.append((values[idx[:1]],
+            groups.append((outcomes[idx[:1]],
                            {k: v[idx] for k, v in eps_record.items()}))
     return groups
 
 
-def _grouped_log_likelihood(model, locations, groups):
+def _grouped_log_likelihood(model, locations, groups, generator=None):
     """Σ over the record of log L(o_k | θ, e_k): (n,). The log path where
     the model has a stable log-likelihood (floored at ``_LOG_LL_FLOOR``),
-    else the linear likelihood floored at ``_LL_FLOOR``."""
+    else the linear likelihood floored at ``_LL_FLOOR``. A keyed model
+    (``wants_likelihood_key``) draws its noise from ``generator``."""
     use_log = bool(getattr(model, "has_log_likelihood", False))
+    kw = keyed_kwargs(model, generator)
     total = torch.zeros(locations.shape[0], dtype=locations.dtype,
                         device=locations.device)
     for outcome, eps in groups:
         if use_log:
-            ll = model.log_likelihood(outcome, locations, eps)[0]
+            ll = model.log_likelihood(outcome, locations, eps, **kw)[0]
             # exact −inf (impossible outcomes) floored like the linear
             # path: the MH ratio must never see −inf minus −inf
             ll = torch.clamp_min(ll, _LOG_LL_FLOOR)
         else:
             ll = torch.log(torch.clamp_min(
-                model.likelihood(outcome, locations, eps)[0], _LL_FLOOR))
+                model.likelihood(outcome, locations, eps, **kw)[0],
+                _LL_FLOOR))
         total = total + ll.sum(dim=1)
     return total
 
 
-def record_log_likelihood(model, locations, outcomes, eps_record, mask):
+def record_log_likelihood(model, locations, outcomes, eps_record, mask,
+                          generator=None):
     """Σ_k mask_k · log L(o_k | θ, e_k) for every particle: (n,).
 
     ``outcomes`` has leading axis T (record steps); ``eps_record`` is an
@@ -137,10 +142,12 @@ def record_log_likelihood(model, locations, outcomes, eps_record, mask):
     step); ``mask`` (T,) selects the steps observed so far. The steps are
     grouped by outcome value, so each likelihood call takes one outcome
     and up to ``_RECORD_CHUNK`` experiments: (n, ≤ 256) at a time, never
-    the (T, n, T) table of all outcomes under all experiments.
+    the (T, n, T) table of all outcomes under all experiments. A keyed
+    model draws its noise from ``generator``.
     """
     return _grouped_log_likelihood(
-        model, locations, _record_groups(outcomes, eps_record, mask))
+        model, locations, _record_groups(outcomes, eps_record, mask),
+        generator)
 
 
 def binomial_record_log_likelihood(two_outcome_model, locations, succ,
@@ -200,6 +207,15 @@ def _two_outcome(model):
             else model)
 
 
+def _refuse_keyed(model, what):
+    """``ValueError`` for a Monte-Carlo likelihood
+    (``wants_likelihood_key``) on a path that needs a deterministic one."""
+    if getattr(model, "wants_likelihood_key", False):
+        raise ValueError(f"{what} requires a deterministic likelihood "
+                         "(wants_likelihood_key models re-estimate per "
+                         "evaluation)")
+
+
 def _normal(generator, like, shape=None):
     return torch.randn(like.shape if shape is None else shape,
                        generator=generator, device=like.device,
@@ -231,9 +247,10 @@ def mcmc_rejuvenate(model, prior, generator, locations, outcomes,
         tensor.
     """
     groups = _record_groups(outcomes, eps_record, mask)
-    return _fixed_scale(model, prior, generator, locations,
-                        lambda x: _grouped_log_likelihood(model, x, groups),
-                        n_moves, proposal_scale, canonicalize)
+    return _fixed_scale(
+        model, prior, generator, locations,
+        lambda x, g=None: _grouped_log_likelihood(model, x, groups, g),
+        n_moves, proposal_scale, canonicalize)
 
 
 def mcmc_rejuvenate_binomial(model, prior, generator, locations, succ,
@@ -243,8 +260,11 @@ def mcmc_rejuvenate_binomial(model, prior, generator, locations, succ,
     target up to a constant, each evaluation one (n, E) pool pass.
     ``model`` may be a ``BinomialModel`` (unwrapped for the success
     probability) or the bare two-outcome model; validity and
-    canonicalization use ``model`` itself."""
+    canonicalization use ``model`` itself. A Monte-Carlo likelihood is
+    refused (``ValueError``): the totals cannot reproduce each step's
+    noise."""
     two = _two_outcome(model)
+    _refuse_keyed(two, "sufficient-statistic rejuvenation")
     return _fixed_scale(
         model, prior, generator, locations,
         lambda x: binomial_record_log_likelihood(two, x, succ, trials,
@@ -367,8 +387,10 @@ def waste_free_rejuvenate_binomial(model, prior, generator, weights,
                                    lw_seed_a=None, beta=0.3):
     """Waste-free resample-move over the sufficient-statistic record: it
     replaces both the resample and the moves, so call it instead of the
-    resampler when the ESS gate fires."""
+    resampler when the ESS gate fires. A Monte-Carlo likelihood is
+    refused (``ValueError``)."""
     two = _two_outcome(model)
+    _refuse_keyed(two, "waste-free rejuvenation")
     return _waste_free_core(
         model, prior, generator, weights, locations,
         lambda x: binomial_record_log_likelihood(two, x, succ, trials,
@@ -381,8 +403,11 @@ def waste_free_rejuvenate(model, prior, generator, weights, locations,
                           outcomes, eps_record, mask, n_stages,
                           proposal_scale=2.38, canonicalize=True,
                           kernel="rwm", lw_seed_a=None, beta=0.3):
-    """Full-record waste-free resample-move (any model; O(T·M) per
-    evaluation instead of O(T·n))."""
+    """Full-record waste-free resample-move (any deterministic model;
+    O(T·M) per evaluation instead of O(T·n)). A Monte-Carlo likelihood is
+    refused (``ValueError``): keeping every chain state as a particle
+    needs the same likelihood at every evaluation."""
+    _refuse_keyed(model, "waste-free rejuvenation")
     groups = _record_groups(outcomes, eps_record, mask)
     return _waste_free_core(
         model, prior, generator, weights, locations,
@@ -469,15 +494,19 @@ def _lp_and_whitened_grad(posterior_lp, x, chol, cap):
 
 def _adaptive_sweeps(model, generator, x, lp, u, chol, posterior_lp,
                      lp_and_grad, n_moves, log_scale, adapt_t, method,
-                     target_accept, adapt):
+                     target_accept, adapt, crn_seed=None):
     """The sweep loop of :func:`_mh_moves_adaptive`, on device tensors
     only: no value comes to the host. ``u`` is the whitened gradient at
-    ``x`` (MALA; None for the random walk). Returns ``(x, summed
-    acceptance, log_scale, adapt_t)``."""
+    ``x`` (MALA; None for the random walk). With ``crn_seed`` (a
+    Monte-Carlo likelihood) each sweep re-estimates both sides of the
+    ratio with common random numbers, a generator seeded ``crn_seed +
+    sweep`` for each (Monte Carlo within Metropolis), so no lucky estimate
+    freezes into the chain. Returns ``(x, summed acceptance, log_scale,
+    adapt_t)``."""
     n = x.shape[0]
     acc_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     ls, t = log_scale, adapt_t
-    for _ in range(int(n_moves)):
+    for sweep in range(int(n_moves)):
         s = torch.exp(ls)
         xi = _normal(generator, x)
         if method == "mala":
@@ -495,7 +524,14 @@ def _adaptive_sweeps(model, generator, x, lp, u, chol, posterior_lp,
         else:
             prop = x + s * (xi @ chol.T)
             valid = model.are_models_valid(prop)
-            lp_p = posterior_lp(prop)
+            if crn_seed is None:
+                lp_p = posterior_lp(prop)
+            else:
+                g = torch.Generator(device=x.device)
+                g.manual_seed(crn_seed + sweep)
+                lp_p = posterior_lp(prop, g)
+                g.manual_seed(crn_seed + sweep)
+                lp = posterior_lp(x, g)
             ratio = lp_p - lp
         accept = valid & (_log_uniform(generator, n, x) < ratio)
         x = torch.where(accept[:, None], prop, x)
@@ -536,6 +572,11 @@ def _mh_moves_adaptive(model, prior, generator, locations, record_ll,
     if method not in ("rwm", "mala"):
         raise ValueError(f"unknown MCMC method {method!r} "
                          "(expected 'rwm' or 'mala')")
+    keyed = bool(getattr(model, "wants_likelihood_key", False))
+    if keyed and method == "mala":
+        raise ValueError("mcmc_method='mala' requires a deterministic "
+                         "likelihood (Monte-Carlo likelihoods have no "
+                         "usable gradient; use mcmc_method='rwm')")
     x = locations
     d = x.shape[1]
     log_pdf = resolve_prior_log_pdf(prior)
@@ -544,19 +585,27 @@ def _mh_moves_adaptive(model, prior, generator, locations, record_ll,
     log_scale = torch.as_tensor(log_scale, dtype=x.dtype, device=x.device)
     adapt_t = torch.as_tensor(adapt_t, dtype=torch.int32, device=x.device)
 
-    def posterior_lp(xx):
-        return record_ll(xx) + log_pdf(xx)
+    def posterior_lp(xx, g=None):
+        return (record_ll(xx, g) if keyed else record_ll(xx)) + log_pdf(xx)
 
     def lp_and_grad(xx):
         return _lp_and_whitened_grad(posterior_lp, xx, chol, cap)
 
+    crn_seed = None
     if method == "mala":
         lp, u = lp_and_grad(x)
+    elif keyed:
+        # every sweep re-estimates both sides, so no initial pass; the
+        # call's one extra host copy is the seed of its sweeps' streams
+        lp, u = torch.zeros_like(x[:, 0]), None
+        crn_seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                     device=x.device))
     else:
         lp, u = posterior_lp(x), None
     x, acc_sum, log_scale, adapt_t = _adaptive_sweeps(
         model, generator, x, lp, u, chol, posterior_lp, lp_and_grad,
-        n_moves, log_scale, adapt_t, method, float(target_accept), adapt)
+        n_moves, log_scale, adapt_t, method, float(target_accept), adapt,
+        crn_seed)
     if canonicalize:
         x = model.canonicalize(x)
     return x, acc_sum / max(int(n_moves), 1), log_scale, adapt_t
@@ -576,7 +625,8 @@ def mcmc_rejuvenate_adaptive(model, prior, generator, locations, outcomes,
     groups = _record_groups(outcomes, eps_record, mask)
     return _mh_moves_adaptive(
         model, prior, generator, locations,
-        lambda x: _grouped_log_likelihood(model, x, groups), n_moves,
+        lambda x, g=None: _grouped_log_likelihood(model, x, groups, g),
+        n_moves,
         log_scale, adapt_t, method, target_accept, canonicalize,
         adapt=adapt)
 
@@ -594,6 +644,7 @@ def mcmc_rejuvenate_binomial_adaptive(model, prior, generator, locations,
     if target_accept is None:
         target_accept = default_target_accept(method)
     two = _two_outcome(model)
+    _refuse_keyed(two, "sufficient-statistic rejuvenation")
     return _mh_moves_adaptive(
         model, prior, generator, locations,
         lambda x: binomial_record_log_likelihood(two, x, succ, trials,

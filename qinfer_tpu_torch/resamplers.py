@@ -87,6 +87,8 @@ class LiuWestResampler(Resampler):
     :param bool postselect: disable to skip the validity redraw.
     :param float zero_cov_comp: diagonal jitter added to Σ.
     :param bool canonicalize: apply ``model.canonicalize`` to the output.
+
+    ``redraw_rounds`` lists the validity redraw rounds of each call.
     """
 
     def __init__(self, a=0.98, h=None, maxiter=10, postselect=True,
@@ -98,6 +100,7 @@ class LiuWestResampler(Resampler):
         self.postselect = bool(postselect)
         self.zero_cov_comp = float(zero_cov_comp)
         self.canonicalize = bool(canonicalize)
+        self.redraw_rounds = []
 
     def call_with_diagnostics(self, model, generator, particle_weights,
                               particle_locations):
@@ -139,6 +142,7 @@ class LiuWestResampler(Resampler):
                 new_x = torch.where(take[:, None], fresh, new_x)
                 valid = valid | fresh_valid
                 it += 1
+            self.redraw_rounds.append(it)
             # slots still invalid inherit their (valid) ancestor
             n_fallback = torch.sum(~valid).to(torch.int32)
             new_x = torch.where(valid[:, None], new_x, x_anc)

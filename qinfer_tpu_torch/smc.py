@@ -16,7 +16,9 @@ Metropolis moves over the record of committed outcomes, or replace it by
 waste-free resample-move (:mod:`qinfer_tpu_torch.rejuvenation`).
 ``batch_update`` is a Python loop over the same step (the JAX package
 scans it); the region estimators sort on the device and finish on the
-host (float64 cumsum, scipy hulls, the MVEE).
+host (float64 cumsum, scipy hulls, the MVEE). Outcomes are scalars or,
+for ``outcome_ndim = 1`` models, count vectors; a Monte-Carlo likelihood
+(``wants_likelihood_key``) gets a ``torch.Generator`` in every call.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ import torch
 
 from .config import DEFAULT_DEVICE, EPS, resolve_device
 from ._exceptions import ResamplerWarning, ZeroWeightError, ZeroWeightWarning
-from .abstract_model import DifferentiableModel, expparams_at, n_expparams
+from .abstract_model import (DifferentiableModel, expparams_at,
+                             keyed_kwargs, n_expparams)
 from .derived_models import BinomialModel
 from .distributions import ParticleDistribution
 from .resamplers import LiuWestResampler
@@ -94,17 +97,29 @@ class SMCState:
         )
 
 
-def _single_likelihood(model, locations, outcome, eps):
-    """Likelihood of ONE outcome under ONE experiment: (n_particles,)."""
-    return model.likelihood(outcome.reshape(-1)[:1], locations, eps)[0, :, 0]
+def _lift_outcome(model, outcome):
+    """ONE observed outcome shaped for the likelihood contract: (1,) for a
+    scalar outcome, (1, k) for a vector outcome (``outcome_ndim = 1``,
+    ``MultinomialModel``'s count vectors)."""
+    nd = int(getattr(model, "outcome_ndim", 0))
+    if nd == 0:
+        return outcome.reshape(-1)[:1]
+    return outcome.reshape((-1,) + tuple(outcome.shape[-nd:]))[:1]
 
 
-def _single_log_likelihood(model, locations, outcome, eps):
-    return model.log_likelihood(
-        outcome.reshape(-1)[:1], locations, eps)[0, :, 0]
+def _single_likelihood(model, locations, outcome, eps, generator=None):
+    """Likelihood of ONE outcome under ONE experiment: (n_particles,). A
+    keyed model draws its noise from ``generator``."""
+    return model.likelihood(_lift_outcome(model, outcome), locations, eps,
+                            **keyed_kwargs(model, generator))[0, :, 0]
 
 
-def _reweight(model, weights, locations, outcome, eps):
+def _single_log_likelihood(model, locations, outcome, eps, generator=None):
+    return model.log_likelihood(_lift_outcome(model, outcome), locations,
+                                eps, **keyed_kwargs(model, generator))[0, :, 0]
+
+
+def _reweight(model, weights, locations, outcome, eps, generator=None):
     """One reweighting: ``(unnormalized hyp, norm, log_norm)`` with
     ``norm = Σ hyp``.
 
@@ -116,6 +131,9 @@ def _reweight(model, weights, locations, outcome, eps):
       (the outcome is impossible for every weighted particle) reports a
       zero norm.
     * Otherwise the linear path ``hyp = w · L``.
+
+    A keyed model (``wants_likelihood_key``) draws its likelihood's noise
+    from ``generator``, so it is fresh on every step.
     """
     if getattr(type(model), "fused_reweight", None) is not None:
         res = model.fused_reweight(weights, locations, outcome, eps)
@@ -123,7 +141,8 @@ def _reweight(model, weights, locations, outcome, eps):
             hyp, norm = res
             return hyp, norm, torch.log(torch.clamp_min(norm, EPS))
     if getattr(model, "has_log_likelihood", False):
-        log_ell = _single_log_likelihood(model, locations, outcome, eps)
+        log_ell = _single_log_likelihood(model, locations, outcome, eps,
+                                         generator)
         log_post = torch.log(torch.clamp_min(weights, 0.0)) + log_ell
         M = torch.max(log_post)
         finite = torch.isfinite(M)
@@ -132,35 +151,36 @@ def _reweight(model, weights, locations, outcome, eps):
         shifted_norm = torch.sum(hyp)
         log_norm = torch.log(torch.clamp_min(shifted_norm, EPS)) + safe_M
         return hyp, torch.where(finite, shifted_norm, 0.0), log_norm
-    ell = _single_likelihood(model, locations, outcome, eps)
+    ell = _single_likelihood(model, locations, outcome, eps, generator)
     hyp = weights * ell
     norm = torch.sum(hyp)
     return hyp, norm, torch.log(torch.clamp_min(norm, EPS))
 
 
-def _likelihood_grid(model, outcomes, locations, eps):
-    """The scorers' likelihood table (n_out, n, n_cand). Models whose
-    likelihood draws Monte-Carlo noise (``wants_likelihood_key``) need a
-    fresh stream per design call, which this port does not have yet."""
-    if getattr(model, "wants_likelihood_key", False):
-        raise NotImplementedError(
-            f"{type(model).__name__} draws its likelihood from a random "
-            "stream; design scoring for such models is not ported yet")
-    return model.likelihood(outcomes, locations, eps)
+def _likelihood_grid(model, outcomes, locations, eps, generator=None):
+    """The scorers' likelihood table (n_out, n, n_cand). A model whose
+    likelihood draws Monte-Carlo noise (``wants_likelihood_key``) draws
+    it from ``generator``, a stream the caller keeps apart from the
+    update's (``SMCUpdater`` passes its design generator), so every design
+    call sees fresh noise."""
+    return model.likelihood(outcomes, locations, eps,
+                            **keyed_kwargs(model, generator))
 
 
-def _hypothetical_update(model, weights, locations, outcomes, eps):
+def _hypothetical_update(model, weights, locations, outcomes, eps,
+                         generator=None):
     """Posterior weights for every (outcome, experiment) hypothesis:
     ``(norm_weights (n_out, n_eps, n), L (n_out, n, n_eps), norms
     (n_out, n_eps))``."""
-    L = _likelihood_grid(model, outcomes, locations, eps)
+    L = _likelihood_grid(model, outcomes, locations, eps, generator)
     hyp = L * weights[None, :, None]
     norms = torch.sum(hyp, dim=1)
     norm_w = hyp.movedim(1, 2) / torch.clamp_min(norms, EPS)[..., None]
     return norm_w, L, norms
 
 
-def _bayes_risk(model, weights, locations, outcomes, mask, eps, Q):
+def _bayes_risk(model, weights, locations, outcomes, mask, eps, Q,
+                generator=None):
     """Expected posterior Q-weighted variance, marginalized over outcomes:
     risk(e) = Σ_o Pr(o|e) · Σ_j Q_j Var[θ_j | o, e]; padded outcome slots
     (``mask`` 0) contribute nothing.
@@ -168,7 +188,7 @@ def _bayes_risk(model, weights, locations, outcomes, mask, eps, Q):
     Two products of the likelihood table against the weighted raw moments,
     ``N = L·w`` and ``M = L·(w ⊙ [x, x²])``, normalized at the small
     (n_out, n_cand, 2d) output: no per-particle posterior is built."""
-    L = _likelihood_grid(model, outcomes, locations, eps)
+    L = _likelihood_grid(model, outcomes, locations, eps, generator)
     L = L * mask[:, None, :]
     d = locations.shape[1]
     xaug = torch.cat([locations, locations * locations], dim=1)
@@ -185,12 +205,12 @@ def _bayes_risk(model, weights, locations, outcomes, mask, eps, Q):
 
 
 def _expected_information_gain(model, weights, locations, outcomes, mask,
-                               eps):
+                               eps, generator=None):
     """Mutual information (nats) between the outcome and the parameters
     for each candidate: IG(e) = H[Pr(o|e)] − E_θ H[Pr(o|θ,e)], with padded
     outcome slots (``mask`` 0) contributing nothing. Holds at most two
     (n_out, n, n_cand) tables at once beside the model's own."""
-    L = _likelihood_grid(model, outcomes, locations, eps)
+    L = _likelihood_grid(model, outcomes, locations, eps, generator)
     L = L * mask[:, None, :]
     marg = torch.matmul(weights, L)  # (n_out, n_cand): Pr(o | e)
     h_marg = -torch.sum(marg * torch.log(torch.clamp_min(marg, EPS)), dim=0)
@@ -210,7 +230,7 @@ def _outcome_grid(model, eps, weights):
 
 
 def score_candidates(score_fn, model, weights, locations, eps, extra_args=(),
-                     candidate_chunk=None):
+                     candidate_chunk=None, generator=None):
     """Score the candidate experiments ``eps`` (a canonical dict on the
     particles' device) with ``score_fn(model, w, x, outcomes, mask, eps,
     *extra_args)``, optionally ``candidate_chunk`` at a time: the pool is
@@ -218,12 +238,13 @@ def score_candidates(score_fn, model, weights, locations, eps, extra_args=(),
     chunk is scored with its own outcome mask, and the result is cut back
     to the pool. The likelihood table is (n_out, n, n_cand), so a chunk
     bounds the peak memory at a few (n_out, n, chunk) tables whatever the
-    pool's size. No device→host copy."""
+    pool's size. No device→host copy. A keyed model's likelihood noise
+    comes from ``generator``."""
     n_e = n_expparams(eps)
     outcomes, mask = _outcome_grid(model, eps, weights)
     if candidate_chunk is None or n_e <= candidate_chunk:
         return score_fn(model, weights, locations, outcomes, mask, eps,
-                        *extra_args)
+                        *extra_args, generator=generator)
     c = int(candidate_chunk)
     n_pad = (-n_e) % c
     if n_pad:
@@ -234,7 +255,7 @@ def score_candidates(score_fn, model, weights, locations, eps, extra_args=(),
         ec = {k: v[start:start + c] for k, v in eps.items()}
         scores.append(score_fn(model, weights, locations, outcomes,
                                model.outcome_mask(ec).to(weights.dtype), ec,
-                               *extra_args))
+                               *extra_args, generator=generator))
     return torch.cat(scores)[:n_e]
 
 
@@ -301,8 +322,9 @@ def _update_step(model, resampler, state, outcome, eps, resample_thresh,
 
     :param outcome: the observed outcome (tensor on the state's device).
     :param eps: expparams dict of ONE experiment, on the state's device.
-    :param generator: the :class:`torch.Generator` the timestep and the
-        resample draw from.
+    :param generator: the :class:`torch.Generator` a keyed model's
+        likelihood noise, the timestep and the resample draw from, in that
+        order.
     :param resample_gate: optional bool that additionally gates the
         resample (see :func:`resample_interval_gate`).
     :return: ``(new_state, log_norm, was_zero)`` with ``log_norm`` a float
@@ -310,7 +332,7 @@ def _update_step(model, resampler, state, outcome, eps, resample_thresh,
     """
     n = state.weights.shape[0]
     hyp, norm, log_norm = _reweight(
-        model, state.weights, state.locations, outcome, eps)
+        model, state.weights, state.locations, outcome, eps, generator)
     was_zero_t = norm <= zero_weight_thresh
     new_w = torch.where(was_zero_t, 1.0 / n,
                         hyp / torch.clamp_min(norm, EPS))
@@ -408,6 +430,14 @@ class SMCUpdater:
         ``resampling_divergences`` (:meth:`est_kl_divergence`: O(n²) work
         a resample).
 
+    Models whose likelihood is a Monte-Carlo estimate
+    (``wants_likelihood_key``: ALE, ``PoisonedModel``) get
+    ``generator=``: the updater's own generator in every update step (so
+    the noise is fresh each step, as the JAX package's per-step key), and
+    a design generator of their own, seeded from ``seed``, in the design
+    scorers (so scoring leaves the update's stream untouched, as the JAX
+    package's ``_design_key`` does).
+
     The one option of the JAX updater outside this port, ``sharding``,
     raises :class:`NotImplementedError` when set to anything but ``None``.
     """
@@ -480,6 +510,12 @@ class SMCUpdater:
             self.mcmc_target_accept = (
                 rj.default_target_accept(self.mcmc_method)
                 if mcmc_target_accept is None else float(mcmc_target_accept))
+            if (self.mcmc_method == "mala"
+                    and getattr(model, "wants_likelihood_key", False)):
+                raise ValueError(
+                    "mcmc_method='mala' requires a deterministic "
+                    "likelihood (Monte-Carlo likelihoods have no usable "
+                    "gradient; use mcmc_method='rwm')")
             if self.waste_free_stages > 0:
                 raise ValueError(
                     "mcmc_adapt / mcmc_method='mala' apply to the "
@@ -536,6 +572,13 @@ class SMCUpdater:
                     "model or a BinomialModel over one (the record "
                     "factorizes through per-candidate binomial "
                     "sufficient statistics)")
+            if getattr(rj._two_outcome(model), "wants_likelihood_key",
+                       False):
+                raise ValueError(
+                    "compress_mcmc_record=True requires a deterministic "
+                    "two-outcome likelihood (Monte-Carlo likelihoods "
+                    "cannot reproduce per-record-step noise from "
+                    "compressed statistics)")
         self.reset()
 
     # -- state management --------------------------------------------------
@@ -546,6 +589,13 @@ class SMCUpdater:
             self._n_particles = int(n_particles)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.seed)
+        # the design scorers' stream for keyed likelihoods: its own seed,
+        # so that scoring leaves the update's stream where it was
+        self._design_generator = None
+        if getattr(self.model, "wants_likelihood_key", False):
+            self._design_generator = torch.Generator(device=self.device)
+            self._design_generator.manual_seed(int(
+                np.random.SeedSequence([self.seed, 1]).generate_state(1)[0]))
         locations = self.prior.sample(self.generator, self._n_particles)
         if self._canonicalize:
             locations = self.model.canonicalize(locations)
@@ -843,11 +893,14 @@ class SMCUpdater:
                 torch.as_tensor(trials.astype(np.int32), device=self.device))
 
     def _record_arrays(self):
-        """The full record on the device: ``(outcomes (T,), expparams with
-        leading axis T)``."""
-        outs = torch.stack([
-            torch.as_tensor(o, device=self.device).reshape(-1)[0]
-            for o in self.data_record])
+        """The full record on the device: ``(outcomes (T,) or (T, k) for
+        vector outcomes, expparams with leading axis T)``."""
+        nd = int(getattr(self.model, "outcome_ndim", 0))
+        outs = [torch.as_tensor(o, device=self.device)
+                for o in self.data_record]
+        outs = torch.stack([o.reshape(-1)[0] if nd == 0
+                            else o.reshape(o.shape[o.ndim - nd:])
+                            for o in outs])
         eps_rec = {k: torch.cat([e[k] for e in self._eps_record])
                    for k in self._eps_record[0]}
         return outs, eps_rec
@@ -932,7 +985,7 @@ class SMCUpdater:
                                 * n_expparams(eps)):
             norm_w, L, norms = _hypothetical_update(
                 self.model, self._state.weights, self._state.locations,
-                outcomes, eps)
+                outcomes, eps, self._design_generator)
         out = (norm_w,)
         if return_likelihood:
             out = out + (L,)
@@ -950,7 +1003,7 @@ class SMCUpdater:
                                 * self.n_particles * n_expparams(eps)):
             return score_candidates(score_fn, self.model, self._state.weights,
                                     self._state.locations, eps, extra_args,
-                                    candidate_chunk)
+                                    candidate_chunk, self._design_generator)
 
     def bayes_risk(self, expparams, candidate_chunk=None):
         """Expected posterior Q-loss of each candidate experiment;

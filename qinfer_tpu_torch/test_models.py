@@ -1,8 +1,9 @@
 """Built-in example likelihood models (counterpart of
-:mod:`qinfer_tpu.test_models`: ``SimplePrecessionModel``, ``CoinModel``,
-and the Ramsey family of BASELINE config 2, ``MultiCosineModel`` and
-``RamseyModel``). All are differentiable: the score is autograd of the
-likelihood."""
+:mod:`qinfer_tpu.test_models`: ``SimplePrecessionModel``,
+``SimpleInversionModel``, ``CoinModel``, ``NoisyCoinModel``,
+``NDieModel``, and the Ramsey family of BASELINE config 2,
+``MultiCosineModel`` and ``RamseyModel``). All but ``NDieModel`` are
+differentiable: the score is autograd of the likelihood."""
 
 from __future__ import annotations
 
@@ -10,8 +11,10 @@ import torch
 
 from .abstract_model import (DifferentiableModel, FiniteOutcomeModel,
                              atleast_2d, n_expparams)
+from .domains import IntegerDomain
 
-__all__ = ["SimplePrecessionModel", "CoinModel", "MultiCosineModel",
+__all__ = ["SimplePrecessionModel", "SimpleInversionModel", "CoinModel",
+           "NoisyCoinModel", "NDieModel", "MultiCosineModel",
            "RamseyModel"]
 
 
@@ -52,6 +55,43 @@ class SimplePrecessionModel(DifferentiableModel, FiniteOutcomeModel):
         return self.pr0_to_likelihood_array(outcomes, pr0)
 
 
+class SimpleInversionModel(DifferentiableModel, FiniteOutcomeModel):
+    """Precession against a controllable inversion frequency:
+    Pr(0 | ω; t, ω_inv) = cos²((ω − ω_inv) t / 2), expparams
+    ``[('t', float), ('w_', float)]`` (``qinfer_tpu/test_models.py:78``)."""
+
+    def __init__(self, min_freq=0.0):
+        super().__init__()
+        self.min_freq = float(min_freq)
+
+    @property
+    def n_modelparams(self):
+        return 1
+
+    @property
+    def modelparam_names(self):
+        return ["omega"]
+
+    @property
+    def expparams_dtype(self):
+        return [("t", "float32"), ("w_", "float32")]
+
+    def n_outcomes(self, expparams=None):
+        return 2
+
+    def are_models_valid(self, modelparams):
+        return atleast_2d(modelparams)[:, 0] >= self.min_freq
+
+    def likelihood(self, outcomes, modelparams, expparams):
+        self._bump("_call_count")
+        modelparams = atleast_2d(modelparams)
+        eps = self.canonicalize_expparams(expparams, modelparams.device)
+        omega = modelparams[:, 0]
+        pr0 = torch.cos((omega[:, None] - eps["w_"][None, :])
+                        * eps["t"][None, :] / 2.0) ** 2
+        return self.pr0_to_likelihood_array(outcomes, pr0)
+
+
 class CoinModel(DifferentiableModel, FiniteOutcomeModel):
     """The heads probability p of a coin: Pr(0 | p) = p, valid for
     0 ≤ p ≤ 1. Experiments carry only a dummy ``exp_num`` field, so that
@@ -83,6 +123,89 @@ class CoinModel(DifferentiableModel, FiniteOutcomeModel):
         p = modelparams[:, 0]
         pr0 = p[:, None].expand(p.shape[0], n_expparams(eps))
         return self.pr0_to_likelihood_array(outcomes, pr0)
+
+
+class NoisyCoinModel(DifferentiableModel, FiniteOutcomeModel):
+    """A coin seen through an asymmetric noisy channel:
+    Pr(0 | p; α, β) = α p + β (1 − p), expparams ``[('alpha', float),
+    ('beta', float)]`` (``qinfer_tpu/test_models.py:161``)."""
+
+    @property
+    def n_modelparams(self):
+        return 1
+
+    @property
+    def modelparam_names(self):
+        return ["p"]
+
+    @property
+    def expparams_dtype(self):
+        return [("alpha", "float32"), ("beta", "float32")]
+
+    def n_outcomes(self, expparams=None):
+        return 2
+
+    def are_models_valid(self, modelparams):
+        p = atleast_2d(modelparams)[:, 0]
+        return (p >= 0) & (p <= 1)
+
+    def likelihood(self, outcomes, modelparams, expparams):
+        self._bump("_call_count")
+        modelparams = atleast_2d(modelparams)
+        eps = self.canonicalize_expparams(expparams, modelparams.device)
+        p = modelparams[:, 0:1]
+        pr0 = eps["alpha"][None, :] * p + eps["beta"][None, :] * (1 - p)
+        return self.pr0_to_likelihood_array(outcomes, pr0)
+
+
+class NDieModel(FiniteOutcomeModel):
+    """An ``n``-sided die whose face probabilities are the model
+    parameters (``qinfer_tpu/test_models.py:203``). Valid parameters are
+    non-negative and sum to 1 within ``threshold``; :meth:`canonicalize`
+    clips at 0 and renormalizes."""
+
+    def __init__(self, n=6, threshold=1e-5):
+        super().__init__()
+        self.n = int(n)
+        self.threshold = float(threshold)
+
+    @property
+    def n_modelparams(self):
+        return self.n
+
+    @property
+    def modelparam_names(self):
+        return [f"p_{i}" for i in range(self.n)]
+
+    @property
+    def expparams_dtype(self):
+        return [("exp_num", "int32")]
+
+    def n_outcomes(self, expparams=None):
+        return self.n
+
+    def domain(self, expparams=None):
+        return IntegerDomain(0, self.n - 1)
+
+    def are_models_valid(self, modelparams):
+        modelparams = atleast_2d(modelparams)
+        nonneg = torch.all(modelparams >= 0, dim=1)
+        normed = (torch.abs(torch.sum(modelparams, dim=1) - 1.0)
+                  < self.threshold)
+        return nonneg & normed
+
+    def canonicalize(self, modelparams):
+        clipped = torch.clamp_min(atleast_2d(modelparams), 0.0)
+        total = torch.sum(clipped, dim=1, keepdim=True)
+        return clipped / torch.where(total == 0, 1.0, total)
+
+    def likelihood(self, outcomes, modelparams, expparams):
+        self._bump("_call_count")
+        modelparams = atleast_2d(modelparams)
+        eps = self.canonicalize_expparams(expparams, modelparams.device)
+        outcomes = torch.as_tensor(outcomes, device=modelparams.device)
+        probs = modelparams.T[outcomes.reshape(-1).long()]  # (n_out, n_m)
+        return probs[:, :, None].expand(-1, -1, n_expparams(eps))
 
 
 class MultiCosineModel(DifferentiableModel, FiniteOutcomeModel):

@@ -15,6 +15,7 @@ from .distributions import (
     GinibreDistribution,
     GinibreReditDistribution,
     BCSZChoiDistribution,
+    GADFLIDistribution,
 )
 from .models import (TomographyModel, DiffusiveTomographyModel,
                      ProcessTomographyModel)
@@ -34,6 +35,7 @@ __all__ = [
     "GinibreDistribution",
     "GinibreReditDistribution",
     "BCSZChoiDistribution",
+    "GADFLIDistribution",
     "TomographyModel",
     "DiffusiveTomographyModel",
     "ProcessTomographyModel",

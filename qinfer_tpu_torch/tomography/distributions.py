@@ -1,7 +1,7 @@
 """Priors over density operators (counterpart of
 :mod:`qinfer_tpu.tomography.distributions`: ``DensityOperatorDistribution``,
-``GinibreDistribution``, ``GinibreReditDistribution`` and
-``BCSZChoiDistribution``).
+``GinibreDistribution``, ``GinibreReditDistribution``,
+``BCSZChoiDistribution`` and ``GADFLIDistribution``).
 
 Sampling runs in the real embedding, as in the JAX package: a complex
 Ginibre draw G = A + iB is the real block matrix E(G) built from two real
@@ -14,16 +14,19 @@ from __future__ import annotations
 
 import torch
 
+import numpy as np
+
 from ..config import EPS
-from ..distributions import Distribution
+from ..distributions import Distribution, _DeviceCache, sample_beta
 from .bases import (EMBEDDED_SWEEPS, assemble_embedding,
-                    batched_jacobi_eigh_small)
+                    batched_jacobi_eigh_small, embed_hermitian_host)
 
 __all__ = [
     "DensityOperatorDistribution",
     "GinibreDistribution",
     "GinibreReditDistribution",
     "BCSZChoiDistribution",
+    "GADFLIDistribution",
 ]
 
 
@@ -163,3 +166,32 @@ class BCSZChoiDistribution(DensityOperatorDistribution):
 
         choi = mE @ wE @ mE.transpose(-1, -2)
         return _normalize_trace(choi, half=True)
+
+
+class GADFLIDistribution(_DeviceCache, DensityOperatorDistribution):
+    """A prior informed by a fiducial state (``qinfer_tpu/tomography/
+    distributions.py:187``): ρ = (1 − β)·ρ_Ginibre + β·ρ_fiducial with
+    β ~ Beta(alpha, beta), so the mass gathers near the experimenter's
+    fiducial guess while every state keeps support (Granade et al.,
+    NJP 18 033024, 2016). The Beta is two generator-driven Gammas.
+
+    :param fiducial_state: the (d, d) complex fiducial density operator.
+    :param rank: the Ginibre part's rank (full by default).
+    """
+
+    def __init__(self, basis, fiducial_state, alpha=1.0, beta=9.0,
+                 rank=None):
+        super().__init__(basis)
+        self.fiducial_embedded = torch.as_tensor(
+            np.asarray(embed_hermitian_host(fiducial_state)),
+            dtype=torch.float32)
+        self.alpha = float(alpha)
+        self.beta = float(beta)
+        self.rank = int(rank) if rank is not None else None
+
+    def _sample_embedded(self, generator, n):
+        rho_g = GinibreDistribution(self.basis, rank=self.rank) \
+            ._sample_embedded(generator, n)
+        mix = sample_beta(generator, self.alpha, self.beta, (n, 1, 1))
+        fid = self._on("fiducial_embedded", generator.device)
+        return (1.0 - mix) * rho_g + mix * fid[None]

@@ -1,7 +1,9 @@
 """Numerical utilities (counterpart of :mod:`qinfer_tpu.utils`: the
-binomial pmf, weighted particle moments and mean functions, effective
-sample size, the PSD matrix square root, and the host-side ellipsoid
-geometry of the region estimators)."""
+binomial and multinomial pmfs, multinomial draws, weighted particle
+moments and mean functions, effective sample size, the PSD matrix square
+root, the simplex transforms, the host-side ellipsoid geometry of the
+region estimators, and the host helpers of ``qinfer_tpu/utils.py:326-391``
+in the port's own copy)."""
 
 from __future__ import annotations
 
@@ -10,9 +12,13 @@ import torch
 
 from .config import EPS
 
-__all__ = ["log_binomial_pdf", "binomial_pdf", "particle_mean",
+__all__ = ["log_binomial_pdf", "binomial_pdf", "multinomial_pdf",
+           "sample_multinomial", "outer_product", "particle_mean",
            "particle_meanfn", "particle_covariance_mtx", "weighted_moments",
-           "n_ess", "sqrtm_psd", "in_ellipsoid", "ellipsoid_volume", "mvee"]
+           "n_ess", "sqrtm_psd", "in_ellipsoid", "ellipsoid_volume", "mvee",
+           "to_simplex", "from_simplex", "uniquify", "assert_sigfigs_equal",
+           "format_uncertainty", "compactspace", "safe_shape",
+           "join_struct_arrays"]
 
 
 def log_binomial_pdf(N, n, p):
@@ -41,6 +47,49 @@ def log_binomial_pdf(N, n, p):
 def binomial_pdf(N, n, p):
     """Pr(n | N, p): trials, successes, success probability."""
     return torch.exp(log_binomial_pdf(N, n, p))
+
+
+def multinomial_pdf(n, p):
+    """Pr(n | p) of a multinomial: counts ``n`` (..., k), category
+    probabilities ``p`` (..., k) clipped to [EPS, 1], total ``n.sum(-1)``
+    (``qinfer_tpu/utils.py:81``). Summed in log space with
+    :func:`torch.lgamma`, then exponentiated; the result takes ``p``'s
+    floating dtype."""
+    p = torch.as_tensor(p)
+    if not p.is_floating_point():
+        p = p.to(torch.get_default_dtype())
+    n = torch.as_tensor(n, device=p.device).to(p.dtype)
+    p = torch.clamp(p, EPS, 1.0)
+    N = torch.sum(n, dim=-1)
+    log_pmf = (torch.lgamma(N + 1.0) - torch.sum(torch.lgamma(n + 1.0), dim=-1)
+               + torch.sum(n * torch.log(p), dim=-1))
+    return torch.exp(log_pmf)
+
+
+def sample_multinomial(generator, N, p, shape=()):
+    """Multinomial count vectors ``shape + (k,)``, int32, each summing to
+    ``N`` (``qinfer_tpu/utils.py:98``): ``N`` categorical draws a vector,
+    each by inverse CDF on one uniform from ``generator``, counted per
+    category. ``p`` is (k,), not necessarily normalized; a zero category
+    is never drawn."""
+    p = torch.clamp(torch.as_tensor(p, dtype=torch.float32,
+                                    device=generator.device), EPS, 1.0)
+    k = p.shape[-1]
+    cdf = torch.cumsum(p, dim=-1)
+    u = torch.rand(tuple(shape) + (int(N),), generator=generator,
+                   device=generator.device)
+    v = torch.minimum(u * cdf[-1], torch.nextafter(cdf[-1], cdf.new_zeros(())))
+    cats = torch.searchsorted(cdf, v.contiguous(), right=True).clamp_max(k - 1)
+    counts = torch.zeros(tuple(shape) + (k,), dtype=torch.int32,
+                         device=generator.device)
+    return counts.scatter_add_(-1, cats, torch.ones_like(cats,
+                                                         dtype=torch.int32))
+
+
+def outer_product(x):
+    """x xᵀ of a vector x."""
+    x = torch.as_tensor(x)
+    return torch.outer(x, x)
 
 
 def particle_mean(weights, locations):
@@ -153,3 +202,91 @@ def mvee(points, tol=1e-3, max_iter=10_000):
         np.linalg.inv(points.T @ np.diag(u) @ points - np.outer(c, c)) / d
     )
     return A, c
+
+
+# -- simplex transforms (multinomial-valued model parameters) ---------------
+
+def to_simplex(y):
+    """Stick-breaking coordinates (..., k−1) in (0, 1) to points of the
+    probability simplex (..., k)."""
+    y = torch.as_tensor(y)
+    rem = torch.cat([torch.ones_like(y[..., :1]),
+                     torch.cumprod(1.0 - y, dim=-1)], dim=-1)
+    sticks = torch.cat([y, torch.ones_like(y[..., :1])], dim=-1)
+    return rem * sticks
+
+
+def from_simplex(p):
+    """Inverse of :func:`to_simplex`: simplex points (..., k) to
+    stick-breaking coordinates (..., k−1), clipped to [0, 1]."""
+    p = torch.as_tensor(p)
+    rem = 1.0 - torch.cumsum(p[..., :-1], dim=-1)
+    rem = torch.cat([torch.ones_like(p[..., :1]), rem[..., :-1]], dim=-1)
+    return torch.clamp(p[..., :-1] / torch.clamp_min(rem, EPS), 0.0, 1.0)
+
+
+# -- host helpers ------------------------------------------------------------
+
+def uniquify(seq):
+    """The items of ``seq`` without repeats, in first-seen order."""
+    seen = set()
+    out = []
+    for item in seq:
+        if item not in seen:
+            seen.add(item)
+            out.append(item)
+    return out
+
+
+def assert_sigfigs_equal(x, y, sigfigs=3):
+    """Assert that two arrays agree to ``sigfigs`` significant figures."""
+    x = np.asarray(x, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float64)
+    mag = np.floor(np.log10(np.maximum(np.abs(x), np.abs(y)) + 1e-300))
+    scale = 10.0 ** (mag - sigfigs + 1)
+    np.testing.assert_array_almost_equal(x / scale, y / scale, decimal=0)
+
+
+def format_uncertainty(value, uncertainty, scinotn_break=4):
+    """``value ± uncertainty`` with the digits the uncertainty justifies,
+    e.g. ``format_uncertainty(0.12345, 0.002)`` → ``'0.123 ± 0.002'``;
+    scientific notation relative to the value's magnitude when either
+    magnitude reaches ``scinotn_break``."""
+    value = float(value)
+    uncertainty = float(uncertainty)
+    if uncertainty <= 0 or not np.isfinite(uncertainty):
+        return "{0}".format(value)
+    mag_unc = int(np.floor(np.log10(uncertainty)))
+    mag_val = int(np.floor(np.log10(abs(value)))) if value != 0 else 0
+    if abs(mag_val) < scinotn_break and abs(mag_unc) < scinotn_break:
+        digits = max(0, -mag_unc)
+        return "{0:.{d}f} ± {1:.{d}f}".format(value, uncertainty, d=digits)
+    scaled_val = value / 10.0 ** mag_val
+    scaled_unc = uncertainty / 10.0 ** mag_val
+    digits = max(0, mag_val - mag_unc)
+    return "({0:.{d}f} ± {1:.{d}f}) × 10^{2}".format(
+        scaled_val, scaled_unc, mag_val, d=digits)
+
+
+def compactspace(scale, n):
+    """``n`` points spanning the real line, compactified by arctanh (for
+    plotting the marginals of unbounded parameters)."""
+    interior = np.linspace(-1.0, 1.0, n + 2)[1:-1]
+    return scale * np.arctanh(interior)
+
+
+def safe_shape(arr, idx=0, default=1):
+    """``arr.shape[idx]`` if the array has that axis, else ``default``."""
+    shape = np.shape(arr)
+    return shape[idx] if len(shape) > idx else default
+
+
+def join_struct_arrays(arrays):
+    """NumPy structured arrays of one length joined field-wise into one
+    structured array."""
+    dtype = sum((a.dtype.descr for a in arrays), [])
+    out = np.empty(len(arrays[0]), dtype=dtype)
+    for a in arrays:
+        for name in a.dtype.names:
+            out[name] = a[name]
+    return out

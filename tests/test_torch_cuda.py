@@ -693,3 +693,85 @@ def test_bcrb_on_the_card_is_finite_and_psd(_card, adaptive):
     ev = torch.linalg.eigvalsh(torch.as_tensor(bim))
     assert float(ev.min()) >= -1e-6 * float(ev.abs().max())
     assert bool(torch.isfinite(torch.as_tensor(u.current_bcrb)).all())
+
+
+def _item8_draw(kind, g, dev):
+    """One generator-driven draw of the item-8 samplers, on the card."""
+    import qinfer_tpu_torch as qt
+    from qinfer_tpu_torch.distributions import sample_beta, sample_gamma
+
+    if kind == "gamma":
+        return sample_gamma(g, 0.7, (20_000,))
+    if kind == "beta":
+        return sample_beta(g, 1.0, 9.0, (20_000,))
+    if kind == "dirichlet":
+        return qt.MVUniformDistribution(6).sample(g, 20_000)
+    if kind == "poisson":
+        m = qt.ReferencedPoissonModel(qt.SimplePrecessionModel())
+        eps = {"t": torch.ones((3,), device=dev),
+               "mode": torch.tensor([0, 1, 2], dtype=torch.int32,
+                                    device=dev)}
+        return m.simulate_experiment(
+            g, torch.tensor([[0.7, 40.0, 2.0]], device=dev), eps,
+            repeat=5000)
+    if kind == "multinomial":
+        m = qt.MultinomialModel(qt.NDieModel(6), n_meas_max=100)
+        eps = {"exp_num": torch.zeros((2,), dtype=torch.int32, device=dev),
+               "n_meas": torch.tensor([100, 37], dtype=torch.int32,
+                                      device=dev)}
+        p = torch.tensor([[0.1, 0.15, 0.2, 0.25, 0.05, 0.25]], device=dev)
+        return m.simulate_experiment(g, p, eps, repeat=2000)
+    return qt.sample_multinomial(g, 50, [0.2, 0.3, 0.5], (4000,))
+
+
+@pytest.mark.parametrize("kind", ["gamma", "beta", "dirichlet", "poisson",
+                                  "multinomial", "sample_multinomial"])
+def test_item8_samplers_replay_from_a_cuda_generator(_card, kind):
+    """Every generator-driven sampler of the item-8 path draws on the card
+    from a CUDA generator: the same seed gives the same draws to the bit,
+    another seed others; multinomial totals equal each experiment's
+    n_meas."""
+    a = _item8_draw(kind, _gen(11), _card)
+    b = _item8_draw(kind, _gen(11), _card)
+    c = _item8_draw(kind, _gen(12), _card)
+    assert a.is_cuda and torch.equal(a, b) and not torch.equal(a, c)
+    if kind == "multinomial":
+        assert bool((a.sum(-1) == torch.tensor(
+            [100, 37], dtype=torch.int32, device=_card)).all())
+    if kind in ("gamma", "beta"):
+        assert bool(torch.isfinite(a).all()) and bool((a > 0).all())
+
+
+def test_item8_gadfli_projection_equals_plain_to_the_bit(_card):
+    """Run (e)'s strict projection: GADFLI-prior two-qubit states at
+    100 000 particles, pushed off the PSD cone as a Liu-West proposal
+    pushes them (a = 0.98 around the ensemble mean, the ensemble
+    covariance's Cholesky factor), embedded (8×8): K4 equals its plain
+    twin to the bit, and projects the rows the strict gate flags."""
+    from qinfer_tpu_torch.tomography import GADFLIDistribution, TomographyModel
+    from qinfer_tpu_torch.tomography.models import (STRICT_PSD_TOL,
+                                                    _cholesky_fails)
+    from qinfer_tpu_torch.utils import weighted_moments
+
+    basis = bases.pauli_basis(2)
+    model = TomographyModel(basis)
+    fid = torch.zeros((4, 4), dtype=torch.complex64)
+    fid[0, 0] = 1.0
+    g = _gen(8)
+    x = GADFLIDistribution(basis, fid.numpy()).sample(g, 100_000)
+    w = torch.full((x.shape[0],), 1.0 / x.shape[0], device=_card)
+    mu, cov = weighted_moments(w, x)
+    L = torch.linalg.cholesky(cov + 1e-10 * torch.eye(15, device=_card))
+    h = (1 - 0.98 ** 2) ** 0.5
+    prop = 0.98 * x + 0.02 * mu + h * torch.randn(
+        x.shape, generator=g, device=_card) @ L.T
+    m = model._embedded_states(prop)
+    assert int(_cholesky_fails(m, STRICT_PSD_TOL).sum()) > 0
+    before = jac.jacobi_project_lanes.launches
+    got = jac.jacobi_project_lanes(m, sweeps=bases.EMBEDDED_SWEEPS,
+                                   trace=2.0)
+    want = jac.jacobi_project_lanes_plain(m, sweeps=bases.EMBEDDED_SWEEPS,
+                                          trace=2.0)
+    torch.cuda.synchronize()
+    assert jac.jacobi_project_lanes.launches == before + 1
+    assert torch.equal(got, want)

@@ -197,13 +197,28 @@ def test_updater_hypothetical_update_matches_jax():
 
 
 def test_scoring_refuses_models_with_a_likelihood_stream():
+    """Scoring no longer refuses a model whose likelihood draws from a
+    stream (``wants_likelihood_key``): it hands the likelihood the
+    updater's design generator, never the update's own, and a noiseless
+    keyed model scores as the plain model does."""
+    seen = []
+
     class Keyed(qt.SimplePrecessionModel):
         wants_likelihood_key = True
 
+        def likelihood(self, outcomes, modelparams, expparams,
+                       generator=None):
+            seen.append(generator)
+            return super().likelihood(outcomes, modelparams, expparams)
+
     u = qt.SMCUpdater(Keyed(), 64, qt.UniformDistribution([[0.0, 1.0]]),
                       device="cpu")
-    with pytest.raises(NotImplementedError):
-        u.expected_information_gain({"t": torch.tensor([1.0, 2.0])})
+    plain = qt.SMCUpdater(qt.SimplePrecessionModel(), 64,
+                          qt.UniformDistribution([[0.0, 1.0]]), device="cpu")
+    eps = {"t": torch.tensor([1.0, 2.0])}
+    got = u.expected_information_gain(eps)
+    assert seen and all(g is not None and g is not u.generator for g in seen)
+    assert torch.equal(got, plain.expected_information_gain(eps))
 
 
 class _StubUpdater:
