@@ -67,6 +67,22 @@ one line, and any failure exits non-zero without the final ``ok`` line:
    and K3 bit-exact on its first resample; K3's times at the new d go
    under its ``other_shapes``, K4's launches on the GADFLI run under
    ``launches_item8_gadfli``.
+   Then the trials phase (``perf_test_scan_batch`` at the JAX trials
+   benchmark's width, 32 trials x 131 072 particles x 256 steps,
+   ``SimplePrecessionModel`` + PGH): batched at ESS intervals 0 and 8
+   (one K3 launch a step over the rows of every trial that resamples) and
+   sequential on a one-card mesh at interval 0 (one K3 launch a
+   resample); each run's median |estimate − truth| below 0.05 and median
+   last/first loss ratio below 1e-2, its aggregate updates/s printed; one
+   recorded batched K3 call replayed against the plain twin and each
+   trial's own K3 fill, to the bit; one batched run of 4 x 131 072 x 64
+   with ``AcceleratedPrecessionModel`` (K1 and K2 once a trial and step;
+   K1 held against its plain version on each trial's last-step inputs).
+   Then the resume phase: the resample-move recipe at 50 000 particles x
+   255 parameters through ``SMCUpdater``, 200 steps, ``save_updater``,
+   ``load_updater`` into an updater of another seed, and 200 more steps of
+   both on the same experiments and outcomes, equal to the bit after
+   every step (K3, K5 and K6 counted).
    Then one more precession run records the largest |ω·t/2| that K1
    meets, and K1 is checked on that step's particles and t;
 6. timing: each kernel's time against its plain version's and, where one
@@ -78,8 +94,12 @@ one line, and any failure exits non-zero without the final ``ok`` line:
    spin where the profiler sees none; each line and result's ``timer``
    says which), K4-K6 by CUDA events; beside them shapes and designs
    timed for comparison (K4's input through K5's one matrix a warp, K1
-   at the path's late-step t). K3 at the models path's shapes goes into
-   K3's entry of the kernels line, under ``other_shapes``.
+   at the path's late-step t). K3 at the models, item-8 and trials
+   paths' shapes goes into K3's entry of the kernels line, under
+   ``other_shapes``, and K1 at the accelerated trials run's shape (n =
+   131 072) into K1's; K1's launches on that run also go under
+   ``launches_trials_accelerated``, and each kernel's launches on the
+   resume phase under ``launches_resume``.
 
 Then it prints the kernels' JSON line, the card line and, last,
 ``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --kernels-only``
@@ -115,6 +135,15 @@ CONFIG5_CHUNK = 4
 CONFIG5_MEMORY = (64, (256, 1024))
 #: the models path (BASELINE configs 2 and 3): particles, ladder repeats
 MODELS = (50_000, 8)
+#: the trials phase: the JAX trials benchmark's configuration (trials,
+#: particles, steps) and seed, the batched runs' ESS intervals, and the
+#: accelerated batched run (trials, particles, steps)
+TRIALS = (32, 131_072, 256)
+TRIALS_SEED = 11
+TRIALS_INTERVALS = (0, 8)
+TRIALS_K1 = (4, 131_072, 64)
+#: the resume phase: particles, steps before the checkpoint and after it
+RESUME = (50_000, 200, 200)
 #: rows of each Jacobi batch held against host float64
 N_F64 = 2000
 #: the process path's resample fill: (particles, parameters)
@@ -284,6 +313,24 @@ def timed(result, kernel, plain, library=None, no_library=None,
                 no_library=no_library, bound=bound_at, attach=attach)
 
 
+def hold_k1(omega, w, t, outcome, where):
+    """K1 against its plain version on one call's inputs: h to 1e-6 · max w
+    (the same cosf, no FMA contraction in the products), the three sums to
+    rtol 1e-5 (the kernel's block-tree order against torch.sum's). Returns
+    max |dh|."""
+    from qinfer_tpu_torch.ops import precession as prec
+
+    got = prec.fused_precession_update(omega, w, t, outcome, normalize=False)
+    want = prec.fused_precession_update_plain(omega, w, t, outcome,
+                                              normalize=False)
+    e = float((got[0] - want[0]).abs().max())
+    require(e <= 1e-6 * float(w.max()), f"K1 h differs by {e} {where}")
+    for name, a, b in zip(("norm", "ess", "mean"), got[1:], want[1:]):
+        rel = abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+        require(rel <= 1e-5, f"K1 {name} rel err {rel} {where}")
+    return e
+
+
 def check_kernels(torch, dev):
     """Phase 3: each kernel against its plain version at main-path shapes.
 
@@ -306,24 +353,12 @@ def check_kernels(torch, dev):
     w = w / w.sum()
     timers, extra = [], []
 
-    # K1: h bit-for-bit up to 1e-6 · max w (same cosf, no FMA contraction in
-    # the products); the three sums to rtol 1e-5 (the kernel's block-tree
-    # order against torch.sum's)
+    # K1 (:func:`hold_k1`)
     err = 0.0
     for t in (1.0, 37.5, 2.0e4):  # the last one puts ω·t/2 up to 1e4
         for outcome in (0, 1):
-            got = prec.fused_precession_update(omega, w, t, outcome,
-                                               normalize=False)
-            want = prec.fused_precession_update_plain(omega, w, t, outcome,
-                                                      normalize=False)
-            e = float((got[0] - want[0]).abs().max())
-            require(e <= 1e-6 * float(w.max()),
-                    f"K1 h differs by {e} at t={t}, outcome={outcome}")
-            for name, a, b in zip(("norm", "ess", "mean"), got[1:], want[1:]):
-                rel = abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
-                require(rel <= 1e-5, f"K1 {name} rel err {rel} at t={t}, "
-                                     f"outcome={outcome}")
-            err = max(err, e)
+            err = max(err, hold_k1(omega, w, t, outcome,
+                                   f"at t={t}, outcome={outcome}"))
     # t and the outcome on the card (the engine's form, int32 and int64)
     # give the by-value results to the bit, twice over
     ref = prec.fused_precession_update(omega, w, 37.5, 1, normalize=False)
@@ -774,15 +809,7 @@ def late_step_k1(torch, dev):
         outcome = updater.model.simulate_experiment(g, true_omega, eps)
         updater.update(outcome, eps)
     arg, t, omega, w = worst
-    got = prec.fused_precession_update(omega, w, t, 1, normalize=False)
-    want = prec.fused_precession_update_plain(omega, w, t, 1,
-                                              normalize=False)
-    e = float((got[0] - want[0]).abs().max())
-    require(e <= 1e-6 * float(w.max()), f"K1 h differs by {e} at the "
-                                        f"path's late-step t={t}")
-    for name, a, b in zip(("norm", "ess", "mean"), got[1:], want[1:]):
-        rel = abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
-        require(rel <= 1e-5, f"K1 {name} rel err {rel} at t={t}")
+    e = hold_k1(omega, w, t, 1, f"at the path's late-step t={t}")
     n = omega.shape[0]
     entry = timed(
         f"fused_precession_update n=2^22 at the path's largest |ω·t/2| = "
@@ -1384,6 +1411,369 @@ def run_item8_path(torch, dev, card):
     return entries, k4_launches
 
 
+def _recording_batch_resampler(torch):
+    """A ``LiuWestResampler(a=0.98)`` that counts its batched calls and
+    the rows they resample, and keeps the inputs of its first call over
+    two or more trials: the generator's state, the weights and the
+    particles."""
+    from qinfer_tpu_torch.resamplers import LiuWestResampler
+
+    class Recording(LiuWestResampler):
+        calls = 0
+        rows = 0
+        first = None
+
+        def call_batch_with_diagnostics(self, model, generator, w, x):
+            self.calls += 1
+            self.rows += w.shape[0]
+            if self.first is None and w.shape[0] >= 2:
+                self.first = (generator.get_state(), w.clone(), x.clone())
+            return super().call_batch_with_diagnostics(model, generator, w,
+                                                       x)
+
+    return Recording(a=0.98)
+
+
+def _recording_k1_model(keep_from):
+    """An ``AcceleratedPrecessionModel`` that counts its reweights and
+    keeps the K1 inputs (ω, w, t, outcome) of every call from the
+    ``keep_from``-th on: with T trials and S steps, ``keep_from`` =
+    (S − 1)·T keeps each trial's last step."""
+    from qinfer_tpu_torch import AcceleratedPrecessionModel
+
+    class Recording(AcceleratedPrecessionModel):
+        def __init__(self):
+            super().__init__()
+            self.calls, self.kept = 0, []
+
+        def fused_reweight(self, weights, locations, outcome, expparams):
+            if self.calls >= keep_from:
+                self.kept.append((locations[:, 0].clone(), weights.clone(),
+                                  float(expparams["t"].reshape(-1)[0]),
+                                  int(outcome.reshape(-1)[0])))
+            self.calls += 1
+            return super().fused_reweight(weights, locations, outcome,
+                                          expparams)
+
+    return Recording()
+
+
+def _replay_batch_fill(torch, dev, recorded):
+    """A recorded batched resample's fill replayed from its inputs (the
+    per-trial offsets drawn again from the generator state it met): the
+    one K3 launch over the flat rows against the plain twin, and against
+    each trial's own K3 launch on its rows, to the bit. Each row's counts
+    sum to n; the counts of a 1-D call on the same offset and weights are
+    compared too (a 1-D cumsum on the card is another summation order, so
+    a span boundary may move by one slot) and the moved slots printed.
+    Returns ``(m, starts, flat rows, T')``."""
+    from qinfer_tpu_torch.ops import streaming_resample as sr
+    from qinfer_tpu_torch.resamplers import (counting_locations_batch_from_u,
+                                             counting_multiplicities_from_u)
+
+    gen_state, w, x = recorded
+    tp, n, d = x.shape
+    g = torch.Generator(device=dev)
+    g.set_state(gen_state)
+    u = torch.rand((tp,), generator=g, device=dev)
+    x_anc, m, starts = counting_locations_batch_from_u(u, w, x)
+    flat = x.reshape(tp * n, d)
+    require(torch.equal(m.reshape(tp, n).sum(dim=1),
+                        torch.full((tp,), n, device=dev)),
+            "trials: a row's counts do not sum to n")
+    plain = sr.streaming_resample_locations_plain(m, starts, flat)
+    require(torch.equal(plain.view(torch.int32),
+                        x_anc.reshape(tp * n, d).view(torch.int32)),
+            "trials: the batched K3 fill differs from the plain twin")
+    moved, shift = 0, 0
+    for t in range(tp):
+        rows = slice(t * n, (t + 1) * n)
+        alone = sr.streaming_resample_locations(
+            m[rows].contiguous(), (starts[rows] - t * n).contiguous(),
+            x[t].contiguous())
+        require(torch.equal(alone.view(torch.int32),
+                            x_anc[t].view(torch.int32)),
+                f"trials: trial {t}'s own K3 fill differs from its rows of "
+                "the batched fill")
+        m1, s1 = counting_multiplicities_from_u(u[t], w[t], n)
+        moved += int((m1 != m[rows]).sum())
+        shift = max(shift, int((s1 - (starts[rows] - t * n)).abs().max()))
+    say("main", f"trials: a batched K3 call over {tp} trials x {n} rows "
+                f"replayed: equal to the plain twin and to each trial's own "
+                f"K3 fill to the bit; 1-D counts on the same offsets move "
+                f"{moved} counts, first slots by at most {shift}")
+    return m, starts, flat, tp
+
+
+def run_trials_path(torch, dev, card):
+    """Phase 5: the trial engines at the JAX trials benchmark's width
+    (``TRIALS``: 32 trials x 131 072 particles x 256 steps, seed 11,
+    ``SimplePrecessionModel`` + PGH): batched at each of
+    ``TRIALS_INTERVALS`` and sequential on a one-card mesh at interval 0,
+    with every launch count set to 0 just before each run and read just
+    after. Each run: the median |estimate − truth| at the last step below
+    0.05 and the median last/first loss ratio below 1e-2; K3 once per
+    step in which at least one trial resampled (batched: the resampler's
+    batched calls, whose rows add up to the trials' resamples) or once per
+    resample (sequential); no other kernel. One recorded batched K3 call
+    (:func:`_replay_batch_fill`). Then one batched run of ``TRIALS_K1``
+    with ``AcceleratedPrecessionModel``: K1 and K2 once per trial and
+    step, and K1 held against its plain version (:func:`hold_k1`) on the
+    inputs each trial's last step gave it. Returns the timing entries of
+    K3 at the replayed shape and of K1 at the trial with the largest
+    |ω·t/2| of those inputs, and K1's launches on the accelerated run."""
+    from qinfer_tpu_torch import SimplePrecessionModel, UniformDistribution
+    from qinfer_tpu_torch.ops import precession as prec
+    from qinfer_tpu_torch.ops import streaming_resample as sr
+    from qinfer_tpu_torch.perf_testing import perf_test_scan_batch
+    from qinfer_tpu_torch.resamplers import LiuWestResampler
+
+    import numpy as np
+
+    counted = counted_wrappers()
+    prior = UniformDistribution([[0.0, 1.0]])
+    t_phase = time.perf_counter()
+    recorded, k3_batched = None, None
+
+    def one_run(model, size, interval, mesh, resampler):
+        T, n, steps = size
+        runner, seeds = perf_test_scan_batch(
+            model, n, prior, steps, T, resampler=resampler, seed=TRIALS_SEED,
+            mesh=mesh, resample_interval=interval, return_runner=True,
+            device=dev)
+        for fn in counted.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = runner(seeds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counted.items()}
+        est = rec["est"][:, -1, :].cpu().numpy()
+        true = rec["true_mps"].cpu().numpy()
+        loss = rec["loss"].cpu().numpy()
+        err = float(np.median(np.abs(est - true)))
+        ratio = float(np.median(loss[:, -1] / np.maximum(loss[:, 0], 1e-30)))
+        require(bool(torch.isfinite(rec["final_weights"]).all())
+                and bool(torch.isfinite(rec["final_locations"]).all()),
+                "trials: NaN or inf in the final ensembles")
+        require(err < 0.05, f"trials: median |est - true| {err} at the last "
+                            "step, not below 0.05")
+        require(ratio < 1e-2, f"trials: median loss ratio {ratio}, not "
+                              "below 1e-2")
+        return rec, runner.resample_counts, launches, wall, err, ratio
+
+    T, n, steps = TRIALS
+    for label, interval in ([("batched", i) for i in TRIALS_INTERVALS]
+                            + [("sequential", 0)]):
+        mesh = [dev] if label == "sequential" else None
+        rs = (_recording_batch_resampler(torch) if mesh is None
+              else LiuWestResampler(a=0.98))
+        rec, counts, launches, wall, err, ratio = one_run(
+            SimplePrecessionModel(), TRIALS, interval, mesh, rs)
+        k3 = launches["streaming_resample_locations"]
+        if mesh is None:
+            require(k3 == rs.calls >= 1 and rs.rows == sum(counts),
+                    f"trials batched interval {interval}: K3 launched {k3} "
+                    f"times for {rs.calls} steps that resampled "
+                    f"({rs.rows} rows, {sum(counts)} resamples)")
+            require(rs.calls <= (steps if interval == 0
+                                 else steps // interval),
+                    f"trials: {rs.calls} resampling steps of {steps}")
+            if interval == 0:
+                recorded, k3_batched = rs.first, k3
+        else:
+            require(k3 == sum(counts) >= 1,
+                    f"trials sequential: K3 launched {k3} times for "
+                    f"{sum(counts)} resamples")
+        require(all(v == 0 for k, v in launches.items()
+                    if k != "streaming_resample_locations"),
+                f"trials {label} launched another kernel: {launches}")
+        say("main", f"trials {label} interval {interval}: {wall:.4f} s for "
+                    f"{T} trials x {n} particles x {steps} steps = "
+                    f"{T * n * steps / wall:.6g} aggregate updates/s "
+                    f"({n * steps / wall:.6g} a trial), median |est - true| "
+                    f"{err:.6g}, median loss ratio {ratio:.6g}, resamples a "
+                    f"trial min {min(counts)} / mean "
+                    f"{sum(counts) / len(counts):.2f} / max {max(counts)}, "
+                    f"K3 launches {k3} on {card}")
+    require(recorded is not None, "trials: no batched resample over two or "
+                                  "more trials to replay")
+    m, starts, flat, tp = _replay_batch_fill(torch, dev, recorded)
+
+    Tk, nk, sk = TRIALS_K1
+    rs = _recording_batch_resampler(torch)
+    model = _recording_k1_model((sk - 1) * Tk)
+    _, counts, launches, wall, err, ratio = one_run(
+        model, TRIALS_K1, 0, None, rs)
+    k1 = launches["fused_precession_update"]
+    require(k1 == Tk * sk == model.calls,
+            f"trials accelerated: K1 launched {k1} times in "
+            f"{model.calls} reweights, not {Tk} x {sk}")
+    require(launches["precession_pr0"] == Tk * sk,
+            f"trials accelerated: K2 launched {launches['precession_pr0']} "
+            f"times, not {Tk} x {sk}")
+    require(launches["streaming_resample_locations"] == rs.calls,
+            f"trials accelerated: K3 launched "
+            f"{launches['streaming_resample_locations']} times for "
+            f"{rs.calls} resampling steps")
+    say("main", f"trials accelerated batched: {wall:.4f} s for {Tk} trials "
+                f"x {nk} particles x {sk} steps = {Tk * nk * sk / wall:.6g} "
+                f"aggregate updates/s, median |est - true| {err:.6g}, "
+                f"launches {launches} on {card}")
+    # K1 on each trial's last-step inputs, as the run launched it
+    k1_err, worst = 0.0, None
+    for trial, (omega, w, t, outcome) in enumerate(model.kept):
+        k1_err = max(k1_err, hold_k1(
+            omega, w, t, outcome,
+            f"on trial {trial}'s last step of the accelerated trials run"))
+        arg = float(omega.abs().max()) * t / 2
+        if worst is None or arg > worst[0]:
+            worst = (arg, trial, omega, w, t, outcome)
+    require(len(model.kept) == Tk, f"trials accelerated: kept "
+                                   f"{len(model.kept)} last steps, not {Tk}")
+    arg, trial, omega, w, t, outcome = worst
+    say("main", f"trials accelerated: K1 on the {Tk} trials' last steps "
+                f"(n = {nk}) against its plain version: max |dh| = "
+                f"{k1_err:.3g}; largest |ω·t/2| = {arg:.6g} (trial {trial}, "
+                f"t = {t:.6g})")
+    say("main", f"trials phase: {time.perf_counter() - t_phase:.1f} s with "
+                f"its set-up")
+    rows = tp * TRIALS[1]
+    entry = timed(
+        f"streaming_resample_locations n={rows}, d=1 (trials: one batched "
+        f"launch over {tp} trials)",
+        lambda: sr.streaming_resample_locations(m, starts, flat),
+        lambda: sr.streaming_resample_locations_plain(m, starts, flat),
+        library=lambda: torch.repeat_interleave(flat, m, dim=0,
+                                                output_size=rows),
+        bound_at=bound(4 * rows + 8 * rows, 0),
+        attach=dict(kernel="streaming_resample_locations",
+                    launches=k3_batched))
+    # bound: ω and w read, h written; ~10 operations a particle (cosf as 1)
+    k1_entry = timed(
+        f"fused_precession_update n={nk} (trials accelerated: trial "
+        f"{trial}'s last step, t = {t:.6g}, outcome {outcome})",
+        lambda: prec.fused_precession_update(omega, w, t, outcome,
+                                             normalize=False),
+        lambda: prec.fused_precession_update_plain(omega, w, t, outcome,
+                                                   normalize=False),
+        no_library="no one PyTorch call fuses the reweight and its sums",
+        bound_at=bound(12 * nk, 10 * nk),
+        attach=dict(kernel="fused_precession_update", launches=k1,
+                    max_abs_err=k1_err))
+    return [entry, k1_entry], k1
+
+
+def run_resume_path(torch, dev, card):
+    """Phase 5: checkpoint and resume on the resample-move recipe
+    (``MOVES_PATH``'s flags through ``SMCUpdater``: 64-shot binomial
+    process tomography of the depolarized two-qubit channel, 8 adaptive
+    Metropolis sweeps over the compressed record after each resample, the
+    ESS checked every 4th step) at ``RESUME``: updater A takes 200 steps,
+    is saved to a temporary file and loaded into updater B, built with
+    another seed; then A and B take the same 200 further steps (the
+    experiments and outcomes drawn once, up front, from the phase's own
+    generator). After every step B must equal A to the bit: weights,
+    locations, ``resample_count``, ``_mcmc_log_scale`` and ``_n_record``.
+    The comparison runs in PyTorch's default mode, with no
+    ``torch.use_deterministic_algorithms``: the port itself must be
+    reproducible (a CUDA cumsum over one row is not, so the port scans a
+    row by ``utils.cumsum_last``). K3 launches once per resample, K5 once per gated projection, K6 once a
+    prior draw (two updaters). Returns the launches."""
+    import tempfile
+
+    from qinfer_tpu_torch import BinomialModel, SMCUpdater
+    from qinfer_tpu_torch import tomography_bench as tb
+    from qinfer_tpu_torch.checkpoint import load_updater, save_updater
+
+    n, before, after = RESUME
+    opts = tb.moves_from_args(tb.parse_args(MOVES_PATH.split()))
+    cfg = tb.make_config("process", dev, process_qubits=2)
+    model = BinomialModel(cfg.model, n_meas_max=opts.shots)
+    counted = counted_wrappers()
+
+    def make(seed):
+        return SMCUpdater(
+            model, n, cfg.prior, resampler=opts.resampler(),
+            n_mcmc_moves=opts.moves, compress_mcmc_record=True,
+            mcmc_canonicalize=not opts.no_move_canonicalize,
+            mcmc_adapt=opts.adapt, mcmc_target_accept=opts.target_accept,
+            zero_weight_policy="reset", seed=seed, device=dev)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(2024)
+    shots = torch.full((1,), opts.shots, dtype=torch.int32, device=dev)
+    true = cfg.true_mps.to(dev)
+    record = []
+    for idx in range(before + after):
+        eps, _ = cfg.propose(g, idx, None, None)
+        eps = dict(eps, n_meas=shots)
+        record.append((model.simulate_experiment(g, true, eps).reshape(-1)[:1],
+                       eps))
+
+    def step(u, idx):
+        o, eps = record[idx]
+        u.update(o, eps, check_for_resample=(idx % opts.interval
+                                             == opts.interval - 1))
+
+    for fn in counted.values():
+        fn.launches = 0
+    cfg.model.projection_count = 0
+    t0 = time.perf_counter()
+    a = make(1)
+    for idx in range(before):
+        step(a, idx)
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "a.npz")
+        t1 = time.perf_counter()
+        save_updater(path, a)
+        size = os.path.getsize(path)
+        b = make(2)
+        load_updater(path, b)
+        torch.cuda.synchronize()
+        wall_io = time.perf_counter() - t1
+    saved_resamples = a.resample_count
+    t2 = time.perf_counter()
+    for idx in range(before, before + after):
+        step(a, idx)
+        step(b, idx)
+        require(torch.equal(a.particle_weights, b.particle_weights)
+                and torch.equal(a.particle_locations, b.particle_locations)
+                and a.resample_count == b.resample_count
+                and a._mcmc_log_scale == b._mcmc_log_scale
+                and a._n_record == b._n_record,
+                f"resume: B differs from A at step {idx}")
+    torch.cuda.synchronize()
+    wall_ab = time.perf_counter() - t2
+    launches = {name: fn.launches for name, fn in counted.items()}
+    resamples = a.resample_count + (b.resample_count - saved_resamples)
+    require(launches["streaming_resample_locations"] == resamples >= 2,
+            f"resume: K3 launched {launches['streaming_resample_locations']}"
+            f" times for {resamples} resamples")
+    require(launches["jacobi_project_lanes_looped"]
+            == cfg.model.projection_count >= 1,
+            f"resume: K5 launched {launches['jacobi_project_lanes_looped']} "
+            f"times for {cfg.model.projection_count} gated projections")
+    require(launches["jacobi_eigh_lanes"] == 2,
+            f"resume: K6 launched {launches['jacobi_eigh_lanes']} times for "
+            "two prior draws")
+    fid = tb.fidelity(cfg.model, a.particle_locations, a.particle_weights,
+                      true)
+    say("main", f"resume: A took {before} steps in {wall_a:.4f} s, saved "
+                f"({size} B) and loaded into B in {wall_io:.4f} s; A and B "
+                f"took {after} more steps each in {wall_ab:.4f} s, equal to "
+                f"the bit after every step; fidelity at step "
+                f"{before + after} {fid:.6f}, {a.resample_count} resamples, "
+                f"log scale {a._mcmc_log_scale:.6f}; K3 "
+                f"{launches['streaming_resample_locations']}, K5 "
+                f"{launches['jacobi_project_lanes_looped']}, K6 "
+                f"{launches['jacobi_eigh_lanes']} launches on {card}")
+    return launches
+
+
 def main(argv):
     kernels_only = argv == ["--kernels-only"]
     require(not argv or kernels_only,
@@ -1450,6 +1840,9 @@ def main(argv):
     extra.extend(run_models_path(torch, dev, card))
     item8_entries, item8_k4 = run_item8_path(torch, dev, card)
     extra.extend(item8_entries)
+    trials_entries, trials_k1 = run_trials_path(torch, dev, card)
+    extra.extend(trials_entries)
+    resume_launches = run_resume_path(torch, dev, card)
     extra.append(late_step_k1(torch, dev)[0])
     results = time_kernels(timers + jac_timers, extra + jac_extra)
     require("jax" not in sys.modules, "JAX was imported")
@@ -1463,6 +1856,11 @@ def main(argv):
         r["launches"] = (path_launches[path] if path else launches)[r["name"]]
     next(r for r in results if r["name"] == "jacobi_project_lanes")[
         "launches_item8_gadfli"] = item8_k4
+    next(r for r in results if r["name"] == "fused_precession_update")[
+        "launches_trials_accelerated"] = trials_k1
+    for r in results:
+        if resume_launches[r["name"]]:
+            r["launches_resume"] = resume_launches[r["name"]]
     print(json.dumps({"kernels": results}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """qinfer_tpu_torch: the PyTorch + CUDA port of :mod:`qinfer_tpu`.
 
-A second package beside the JAX one, which stays the reference. Five
-slices are ported: the precession SMC main path (models, the uniform
+A second package beside the JAX one, which stays the reference. Every
+module but ``parallel`` is ported: the precession SMC main path (models, the uniform
 prior, the SMC updater with Liu-West resampling, the PGH heuristic,
 ``perf_test`` and the benchmark), tomography
 (:mod:`qinfer_tpu_torch.tomography`: bases, priors, state, process and
@@ -17,17 +17,23 @@ models, the Ramsey and randomized-benchmarking models, ``simple_est``,
 distributions and heuristics (the derived models, vector-outcome
 ``MultinomialModel``, approximate likelihood estimation in :mod:`.ale`,
 the prior families, ``ExpSparseHeuristic``, the GADFLI prior;
-``item8_bench``), with the hot kernels hand-written in CUDA for Hopper
+``item8_bench``) and the trial engines (``perf_test_scan``,
+``perf_test_scan_batch``; ``trials_bench``), checkpoint and resume
+(:mod:`.checkpoint`) and the auxiliaries (clustering, metrics, progress
+bars, plots), with the hot kernels hand-written in CUDA for Hopper
 (:mod:`qinfer_tpu_torch.ops`). Module names mirror the JAX package.
 Importing the package builds no kernel and imports no JAX.
 """
 
-from .config import EPS
-from ._exceptions import (ApproximationWarning, ResamplerWarning,
-                          ZeroWeightError, ZeroWeightWarning)
+from .version import __version__, version
+from .config import EPS, default_dtype, default_int_dtype, set_default_dtype
+from ._exceptions import (ApproximationWarning, ResamplerError,
+                          ResamplerWarning, ZeroWeightError,
+                          ZeroWeightWarning)
 from .domains import Domain, IntegerDomain, MultinomialDomain, RealDomain
 from .abstract_model import (DifferentiableModel, FiniteOutcomeModel, Model,
-                             ScoreMixin, Simulatable)
+                             ScoreMixin, Simulatable, dict_to_expparams,
+                             expparams_to_dict)
 from .distributions import (
     BetaBinomialDistribution,
     BetaDistribution,
@@ -92,14 +98,24 @@ from .finite_difference import FiniteDifference
 from .expdesign import (ExperimentDesigner, OptimizationAlgorithms,
                         PoolDesigner, design_from_candidates,
                         select_candidate)
+from .clustering import NO_CLUSTER, particle_clusters
 from .perf_testing import perf_test, perf_test_multiple
 from .simple_est import load_data, simple_est_prec, simple_est_rb
 from .ops.accelerated import AcceleratedPrecessionModel
-from . import rejuvenation, tomography
+from .checkpoint import load_updater, save_updater
+from .ipy import IPythonProgressBar
+from ._due import BibTeX, Doi, due
+from . import checkpoint, perf_testing, rejuvenation, tomography
 
 __all__ = [
+    "version",
+    "__version__",
     "EPS",
+    "default_dtype",
+    "default_int_dtype",
+    "set_default_dtype",
     "ApproximationWarning",
+    "ResamplerError",
     "ResamplerWarning",
     "ZeroWeightError",
     "ZeroWeightWarning",
@@ -112,6 +128,8 @@ __all__ = [
     "FiniteOutcomeModel",
     "DifferentiableModel",
     "ScoreMixin",
+    "expparams_to_dict",
+    "dict_to_expparams",
     "Distribution",
     "SingleSampleMixin",
     "UniformDistribution",
@@ -192,12 +210,22 @@ __all__ = [
     "PoolDesigner",
     "design_from_candidates",
     "select_candidate",
+    "particle_clusters",
+    "NO_CLUSTER",
     "perf_test",
     "perf_test_multiple",
     "simple_est_prec",
     "simple_est_rb",
     "load_data",
     "AcceleratedPrecessionModel",
+    "save_updater",
+    "load_updater",
+    "IPythonProgressBar",
+    "due",
+    "Doi",
+    "BibTeX",
+    "checkpoint",
+    "perf_testing",
     "rejuvenation",
     "tomography",
 ]

@@ -1,8 +1,8 @@
 """Warnings and exceptions of the port (counterparts of
 :mod:`qinfer_tpu._exceptions` used on the SMC main path)."""
 
-__all__ = ["ApproximationWarning", "ResamplerWarning", "ZeroWeightWarning",
-           "ZeroWeightError"]
+__all__ = ["ApproximationWarning", "ResamplerWarning", "ResamplerError",
+           "ZeroWeightWarning", "ZeroWeightError"]
 
 
 class ApproximationWarning(RuntimeWarning):
@@ -14,6 +14,11 @@ class ResamplerWarning(RuntimeWarning):
     """Emitted when the bounded validity-redraw loop of a resampler
     exhausted its budget and invalid proposals were replaced by their
     (valid) ancestors."""
+
+
+class ResamplerError(RuntimeError):
+    """Raised when a resampler cannot produce a valid particle set at
+    all."""
 
 
 class ZeroWeightWarning(RuntimeWarning):

@@ -34,6 +34,8 @@ __all__ = [
     "DifferentiableModel",
     "ScoreMixin",
     "expparams_to_dict",
+    "dict_to_expparams",
+    "concat_expparams",
     "n_expparams",
     "expparams_at",
     "atleast_2d",
@@ -96,6 +98,22 @@ def n_expparams(eps_dict):
 def expparams_at(eps_dict, idx):
     """Select experiment ``idx`` keeping the leading axis (length 1)."""
     return {k: v[idx:idx + 1] for k, v in eps_dict.items()}
+
+
+def dict_to_expparams(eps_dict, expparams_dtype):
+    """An expparams dict as a host NumPy structured array of
+    ``expparams_dtype`` (interop with reference-style code)."""
+    n = n_expparams(eps_dict)
+    out = np.empty((n,), dtype=np.dtype(expparams_dtype))
+    for name in out.dtype.names:
+        v = eps_dict[name]
+        out[name] = v.detach().cpu().numpy() if torch.is_tensor(v) else v
+    return out
+
+
+def concat_expparams(eps_list):
+    """Concatenate expparams dicts along the experiment axis."""
+    return {k: torch.cat([e[k] for e in eps_list]) for k in eps_list[0]}
 
 
 class Simulatable:
@@ -175,6 +193,16 @@ class Simulatable:
     @property
     def call_count(self):
         return self._call_count
+
+    @property
+    def allow_identical_outcomes(self):
+        """Whether the model may report two identical outcomes for
+        distinct labels (no by default, as in the reference package)."""
+        return False
+
+    def clear_cache(self):
+        """Drop cached computations (a no-op hook, as in the reference
+        package)."""
 
     def reset_counters(self):
         self._sim_count = 0

@@ -77,11 +77,12 @@ def timed_run(n_particles, n_steps, seed, device):
     return time.perf_counter() - t0, updater
 
 
-def profile_device_time(run, device, path):
+def profile_device_time(run, device, path=None):
     """Call ``run()`` once under :mod:`torch.profiler`, write the table of
-    device time by kernel to ``path`` and return ``(wall_s, device_s)``:
-    the profiled wall time and the device time summed over all kernels and
-    copies (the profiler slows the host, so the wall is an upper bound)."""
+    device time by kernel to ``path`` (when given) and return ``(wall_s,
+    device_s)``: the profiled wall time and the device time summed over all
+    kernels and copies (the profiler slows the host, so the wall is an
+    upper bound)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize(device)
@@ -96,9 +97,10 @@ def profile_device_time(run, device, path):
     device_s = sum(e.self_device_time_total for e in events
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and not e.is_user_annotation) / 1e6
-    Path(path).parent.mkdir(parents=True, exist_ok=True)
-    Path(path).write_text(events.table(sort_by="self_device_time_total",
-                                       row_limit=40))
+    if path is not None:
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        Path(path).write_text(events.table(sort_by="self_device_time_total",
+                                           row_limit=40))
     return wall, device_s
 
 

@@ -10,11 +10,18 @@ machine without one instead of running on the CPU.
 
 import torch
 
-__all__ = ["default_dtype", "default_int_dtype", "EPS", "DEFAULT_DEVICE",
-           "resolve_device"]
+__all__ = ["default_dtype", "default_int_dtype", "set_default_dtype", "EPS",
+           "DEFAULT_DEVICE", "resolve_device"]
 
 default_dtype = torch.float32
 default_int_dtype = torch.int32
+
+
+def set_default_dtype(dtype):
+    """Set the package-wide default floating dtype (``default_dtype``)."""
+    global default_dtype
+    default_dtype = dtype
+
 
 #: smallest safe positive float for clipping probabilities / weights
 EPS = 1e-35

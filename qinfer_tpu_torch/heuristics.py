@@ -4,8 +4,10 @@
 
 Every heuristic has a pure form ``propose(generator, weights, locations,
 idx_exp) -> expparams dict`` that stays on the particles' device (no
-device→host copy), and the reference's host API ``__call__(idx_exp)``,
-which draws from the bound updater's generator.
+device→host copy), the reference's host API ``__call__(idx_exp)``,
+which draws from the bound updater's generator, and a batched form
+``propose_batch`` over the ensembles of T independent runs (the trial
+engine of :func:`~qinfer_tpu_torch.perf_testing.perf_test_scan_batch`).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from .abstract_model import _field
 from .config import EPS
+from .utils import cumsum_last
 
 __all__ = ["Heuristic", "PGH", "ExpSparseHeuristic", "IdentityHeuristic",
            "categorical_inverse_cdf"]
@@ -25,15 +28,18 @@ def categorical_inverse_cdf(generator, weights):
     necessarily normalized), by inverse CDF on one uniform: a cumsum and a
     binary search, with no device→host copy and no cap on the number of
     categories. The draw lies strictly below the total, so a zero-weight
-    category is never chosen. Returns a 1-element int64 tensor."""
-    cdf = torch.cumsum(weights, dim=0)
-    total = cdf[-1:]
-    u = torch.rand((1,), generator=generator, device=weights.device,
-                   dtype=weights.dtype)
+    category is never chosen. Weights (T, n) draw one index a row (one
+    uniform each; ``torch.multinomial`` with one sample would copy two
+    validity checks to the host and draw n exponentials a row). Returns
+    int64 of the weights' leading shape and a last axis of 1."""
+    cdf = cumsum_last(weights)
+    total = cdf[..., -1:]
+    u = torch.rand(weights.shape[:-1] + (1,), generator=generator,
+                   device=weights.device, dtype=weights.dtype)
     below_total = torch.nextafter(total, torch.zeros_like(total))
     v = torch.minimum(u * total, below_total)
     return torch.searchsorted(cdf, v, right=True).clamp_max(
-        weights.shape[0] - 1)
+        weights.shape[-1] - 1)
 
 
 class Heuristic:
@@ -56,6 +62,16 @@ class Heuristic:
     def propose(self, generator, weights, locations, idx_exp):
         """Pure proposal; returns an expparams dict with one experiment."""
         raise NotImplementedError
+
+    def propose_batch(self, generator, weights, locations, idx_exp):
+        """One experiment for each of T ensembles (``weights`` (T, n),
+        ``locations`` (T, n, d)): a dict of (T, 1, ...) fields, row t
+        :meth:`propose` on ensemble t. This default calls :meth:`propose`
+        once an ensemble; a heuristic that can draw for all of them at
+        once overrides it."""
+        rows = [self.propose(generator, weights[t], locations[t], idx_exp)
+                for t in range(weights.shape[0])]
+        return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 
 
 class PGH(Heuristic):
@@ -84,34 +100,52 @@ class PGH(Heuristic):
         p = torch.clamp_min(weights, EPS)
         i = categorical_inverse_cdf(generator, p)
         j = categorical_inverse_cdf(generator, p.scatter(0, i, 0.0))
-        x1 = locations[i]  # (1, d)
-        x2 = locations[j]
+        eps = self._fields(locations[i], locations[j])  # x₁, x₂: (1, d)
+        return {k: v[0] for k, v in eps.items()}
+
+    def propose_batch(self, generator, weights, locations, idx_exp):
+        """:meth:`propose` for T ensembles at once: both draws of every
+        ensemble in two row-wise inverse-CDF draws
+        (:func:`categorical_inverse_cdf`, the second with the first pick's
+        weight zeroed in its row). Fields are (T, 1, ...)."""
+        p = torch.clamp_min(weights, EPS)
+        i = categorical_inverse_cdf(generator, p)
+        j = categorical_inverse_cdf(generator, p.scatter(1, i, 0.0))
+        rows = torch.arange(locations.shape[0], device=locations.device)
+        return self._fields(locations[rows, i[:, 0]],
+                            locations[rows, j[:, 0]])
+
+    def _fields(self, x1, x2):
+        """The experiments of T pairs of draws, x₁ and x₂ (T, d): fields
+        (T, 1, ...), the time from the pair's separation and the inversion
+        field(s) from x₁."""
+        T, d = x1.shape
         model = self.model
         if model is not None:
-            sep = model.distance(x1, x2)  # (1,)
+            sep = model.distance(x1, x2)  # (T,)
         else:
             sep = torch.linalg.vector_norm(x1 - x2, dim=-1)
         t = 1.0 / torch.clamp_min(sep, self.min_separation)
         if self.t_func is not None:
             t = self.t_func(t)
-        eps = {self.t_field: t.reshape(1)}
-        inv = x1[0] if self.inv_func is None else self.inv_func(x1[0])
+        eps = {self.t_field: t.reshape(T, 1)}
+        inv = x1 if self.inv_func is None else torch.stack(
+            [self.inv_func(row) for row in x1])
         if model is not None:
             names = [f[0] for f in model.expparams_dtype]
-            d = locations.shape[1]
             if d == 1:
                 if self.inv_field in names:
-                    eps[self.inv_field] = inv[:1]
+                    eps[self.inv_field] = inv[:, :1]
             else:
                 for k_idx in range(d):
                     fname = f"{self.inv_field}{k_idx}"
                     if fname in names:
-                        eps[fname] = inv[k_idx:k_idx + 1]
+                        eps[fname] = inv[:, k_idx:k_idx + 1]
                 if self.inv_field in names:
-                    eps[self.inv_field] = inv[None, :]
+                    eps[self.inv_field] = inv[:, None, :]
         for fname, val in self.other_fields.items():
-            eps[fname] = torch.as_tensor(val, device=locations.device
-                                         ).reshape(-1)
+            v = torch.as_tensor(val, device=x1.device).reshape(-1)
+            eps[fname] = v.expand(T, v.shape[0])
         return eps
 
 

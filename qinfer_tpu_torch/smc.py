@@ -34,8 +34,8 @@ import torch
 
 from .config import DEFAULT_DEVICE, EPS, resolve_device
 from ._exceptions import ResamplerWarning, ZeroWeightError, ZeroWeightWarning
-from .abstract_model import (DifferentiableModel, expparams_at,
-                             keyed_kwargs, n_expparams)
+from .abstract_model import (DifferentiableModel, FiniteOutcomeModel,
+                             expparams_at, keyed_kwargs, n_expparams)
 from .derived_models import BinomialModel
 from .distributions import ParticleDistribution
 from .resamplers import LiuWestResampler
@@ -155,6 +155,100 @@ def _reweight(model, weights, locations, outcome, eps, generator=None):
     hyp = weights * ell
     norm = torch.sum(hyp)
     return hyp, norm, torch.log(torch.clamp_min(norm, EPS))
+
+
+def _one_call_a_trial(model):
+    """Whether the batched trial engine evaluates ``model`` one trial at a
+    time: a model whose reweight reaches a hand kernel through
+    ``fused_reweight`` (K1 takes one ensemble a launch) or whose
+    likelihood draws Monte-Carlo noise from a generator (which
+    ``torch.func.vmap`` cannot carry). Every other model takes one
+    vmapped call for all trials."""
+    return (getattr(type(model), "fused_reweight", None) is not None
+            or bool(getattr(model, "wants_likelihood_key", False)))
+
+
+def _trial(eps, t):
+    """Trial ``t``'s experiment from a batched one ((T, 1, ...) fields)."""
+    return {k: v[t] for k, v in eps.items()}
+
+
+def _reweight_batch(model, weights, locations, outcomes, eps,
+                    generator=None):
+    """:func:`_reweight` for T independent ensembles, each against its own
+    outcome and experiment: ``weights`` (T, n), ``locations`` (T, n, d),
+    ``outcomes`` (T,) (or (T, k) vector outcomes), ``eps`` fields
+    (T, 1, ...). Returns ``(unnormalized hyp (T, n), norm (T,))`` by the
+    same three paths; the likelihood of every trial comes from one
+    ``torch.func.vmap`` call over the trial axis (never a T × T cross
+    product), or from one call a trial for the models of
+    :func:`_one_call_a_trial`."""
+    T = weights.shape[0]
+    if _one_call_a_trial(model):
+        res = [_reweight(model, weights[t], locations[t], outcomes[t],
+                         _trial(eps, t), generator) for t in range(T)]
+        return (torch.stack([r[0] for r in res]),
+                torch.stack([r[1].reshape(()) for r in res]))
+    if getattr(model, "has_log_likelihood", False):
+        log_ell = torch.func.vmap(
+            lambda x, o, e: _single_log_likelihood(model, x, o, e))(
+            locations, outcomes, eps)
+        log_post = torch.log(torch.clamp_min(weights, 0.0)) + log_ell
+        M = torch.max(log_post, dim=1, keepdim=True).values
+        finite = torch.isfinite(M)
+        hyp = torch.exp(log_post - torch.where(finite, M, 0.0))
+        return hyp, torch.where(finite[:, 0], torch.sum(hyp, dim=1), 0.0)
+    ell = torch.func.vmap(
+        lambda x, o, e: _single_likelihood(model, x, o, e))(
+        locations, outcomes, eps)
+    hyp = weights * ell
+    return hyp, torch.sum(hyp, dim=1)
+
+
+def _outcome_likelihoods(model, outcomes, true_mps, eps):
+    """The likelihood of each of ``outcomes`` for each of T trials at its
+    own true parameters (``true_mps`` (T, 1, d)) under its own experiment
+    (fields (T, 1, ...)): (T, n_out), from one ``torch.func.vmap`` call."""
+    return torch.func.vmap(
+        lambda x, e: model.likelihood(outcomes, x, e)[:, 0, 0])(
+        true_mps, eps)
+
+
+def _simulate_batch(model, generator, true_mps, eps):
+    """One outcome for each of T trials at its own true parameters
+    ``true_mps`` (T, 1, d) under its own experiment (fields (T, 1, ...)):
+    (T,) scalar outcomes, as the trial engines take them. A finite-outcome model with the generic sampler
+    gets one vmapped likelihood call and one uniform a trial (the inverse
+    CDF of ``FiniteOutcomeModel.simulate_experiment``); any other model
+    (its own sampler, or :func:`_one_call_a_trial`) one call a trial."""
+    T = true_mps.shape[0]
+    generic = (isinstance(model, FiniteOutcomeModel)
+               and type(model).simulate_experiment
+               is FiniteOutcomeModel.simulate_experiment
+               and getattr(model, "is_n_outcomes_constant", True)
+               and not _one_call_a_trial(model))
+    if not generic:
+        return torch.stack([model.simulate_experiment(
+            generator, true_mps[t], _trial(eps, t)).reshape(-1)[0]
+            for t in range(T)])
+    outcomes = model.outcomes(_trial(eps, 0), device=true_mps.device)
+    L = _outcome_likelihoods(model, outcomes, true_mps, eps)
+    cdf = torch.cumsum(torch.clamp_min(L, EPS), dim=1)
+    u = torch.rand((T, 1), generator=generator, device=cdf.device,
+                   dtype=cdf.dtype)
+    idx = torch.sum(cdf <= u * cdf[:, -1:], dim=1)
+    return outcomes[idx.clamp_max(outcomes.shape[0] - 1)]
+
+
+def _pool_key(eps_np):
+    """The rejuvenation pool's identity of one experiment (host arrays,
+    ``n_meas`` already left out): each field's name, ``=`` and raw bytes,
+    in sorted field order, joined by NUL. ``SMCUpdater._pool_index`` maps
+    it to the experiment's pool row; a restored checkpoint rebuilds the
+    index with it."""
+    return b"\x00".join(
+        k.encode() + b"=" + np.ascontiguousarray(eps_np[k]).tobytes()
+        for k in sorted(eps_np))
 
 
 def _likelihood_grid(model, outcomes, locations, eps, generator=None):
@@ -838,9 +932,7 @@ class SMCUpdater:
         n_meas = 1
         if self._record_is_binomial:
             n_meas = int(eps_np.pop("n_meas").ravel()[0])
-        key_bytes = b"\x00".join(
-            k.encode() + b"=" + np.ascontiguousarray(eps_np[k]).tobytes()
-            for k in sorted(eps_np))
+        key_bytes = _pool_key(eps_np)
         row = self._pool_index.get(key_bytes)
         if row is None:
             row = len(self._pool_eps)
@@ -1163,6 +1255,114 @@ class SMCUpdater:
 
             hist = gaussian_filter1d(hist, smoothing)
         return centers, hist
+
+    # -- cluster estimators (host, scikit-learn) ----------------------------
+
+    def _host_cloud(self):
+        return (self._state.weights.cpu().numpy(),
+                self._state.locations.cpu().numpy())
+
+    def est_cluster_moments(self, cluster_opts=None):
+        """Yield ``(label, weight mass, mean, cov)`` for each DBSCAN cluster
+        of a host copy of the particle cloud
+        (:func:`~qinfer_tpu_torch.clustering.particle_clusters` with
+        ``cluster_opts``), the moments of the cluster's renormalized
+        weights; clusters of zero mass are skipped."""
+        from .clustering import particle_clusters
+
+        w, x = self._host_cloud()
+        for label, mask in particle_clusters(x, w, **(cluster_opts or {})):
+            cw = w[mask]
+            mass = cw.sum()
+            if mass <= 0:
+                continue
+            mu, cov = weighted_moments(torch.from_numpy(cw / mass),
+                                       torch.from_numpy(x[mask]))
+            yield label, float(mass), mu.numpy(), cov.numpy()
+
+    def est_cluster_covs(self, cluster_opts=None):
+        """Yield ``(label, weight mass, cov)`` for each cluster."""
+        for label, mass, _, cov in self.est_cluster_moments(cluster_opts):
+            yield label, mass, cov
+
+    def est_cluster_metrics(self, cluster_opts=None):
+        """Summary of the clustering: ``n_clusters`` (zero-mass clusters
+        count), ``n_noise`` (the NUMBER of noise particles) and
+        ``weight_in_clusters``."""
+        from .clustering import NO_CLUSTER, particle_clusters
+
+        w, x = self._host_cloud()
+        n_clusters, n_noise, weight_in = 0, 0, 0.0
+        for label, mask in particle_clusters(x, w, **(cluster_opts or {})):
+            if label == NO_CLUSTER:
+                n_noise += int(mask.sum())
+            else:
+                n_clusters += 1
+                weight_in += float(w[mask].sum())
+        return {"n_clusters": n_clusters, "n_noise": n_noise,
+                "weight_in_clusters": weight_in}
+
+    # -- plots (host, matplotlib) -------------------------------------------
+
+    def plot_posterior_marginal(self, idx_param=0, res=100, smoothing=0.0,
+                                range_min=None, range_max=None,
+                                label_xaxis=True, other_plot_args=None):
+        """Plot one parameter's marginal (:meth:`posterior_marginal`) on the
+        current axes; returns the line."""
+        import matplotlib.pyplot as plt
+
+        xs, ys = self.posterior_marginal(idx_param, res, smoothing,
+                                         range_min, range_max)
+        line, = plt.plot(xs, ys, **(other_plot_args or {}))
+        if label_xaxis:
+            plt.xlabel(self.model.modelparam_names[idx_param])
+        plt.ylabel("posterior density")
+        return line
+
+    def plot_covariance(self, corr=False, param_slice=None, tick_labels=None,
+                        tick_params=None):
+        """Heat map of the posterior covariance (or correlation) matrix,
+        optionally of the parameters ``param_slice`` (a slice or index
+        list) picks; returns the image."""
+        import matplotlib.pyplot as plt
+
+        cov = self.est_covariance_mtx(corr=corr).cpu().numpy()
+        names = (list(tick_labels) if tick_labels is not None
+                 else list(self.model.modelparam_names))
+        if param_slice is not None:
+            idx = np.arange(len(names))[param_slice]
+            cov = cov[np.ix_(idx, idx)]
+            names = [names[i] for i in idx]
+        im = plt.imshow(cov, interpolation="nearest", cmap="RdBu_r")
+        plt.colorbar(im)
+        plt.xticks(range(len(names)), names, **(tick_params or {}))
+        plt.yticks(range(len(names)), names, **(tick_params or {}))
+        return im
+
+    # -- display -----------------------------------------------------------
+
+    def __repr__(self):
+        return (f"<SMCUpdater n_particles={self.n_particles} "
+                f"n_ess={self.n_ess:.1f} "
+                f"resample_count={self.resample_count}>")
+
+    def _repr_html_(self):
+        """Notebook display: the run's size and a table of each parameter's
+        posterior mean ± sd."""
+        from .utils import format_uncertainty
+
+        mean = self.est_mean().cpu().numpy()
+        std = np.sqrt(np.clip(np.diag(
+            self.est_covariance_mtx().cpu().numpy()), 0, None))
+        rows = "".join(
+            f"<tr><td>{name}</td><td>{format_uncertainty(m, s)}</td></tr>"
+            for name, m, s in zip(self.model.modelparam_names, mean, std))
+        return ("<strong>SMCUpdater</strong> "
+                f"({self.n_particles} particles, "
+                f"ESS {self.n_ess:.1f}, {self.resample_count} resamples, "
+                f"{len(self.data_record)} experiments)"
+                f"<table><tr><th>parameter</th><th>posterior</th></tr>"
+                f"{rows}</table>")
 
 
 class SMCUpdaterBCRB(SMCUpdater):

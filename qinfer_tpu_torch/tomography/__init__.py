@@ -1,8 +1,8 @@
 """Quantum state and process tomography (counterpart of
-:mod:`qinfer_tpu.tomography`, without its plotting tools): operator bases
-with the real embedding, density-operator priors, the likelihood models
-whose PSD projection runs the Jacobi kernels K4/K5, and the measurement
-heuristics."""
+:mod:`qinfer_tpu.tomography`): operator bases with the real embedding,
+density-operator priors, the likelihood models whose PSD projection runs
+the Jacobi kernels K4/K5, the measurement heuristics and the plotting
+tools (matplotlib imported at call time)."""
 
 from .bases import (
     TomographyBasis,
@@ -19,6 +19,11 @@ from .distributions import (
 )
 from .models import (TomographyModel, DiffusiveTomographyModel,
                      ProcessTomographyModel)
+from .plotting_tools import (
+    rebit_coords,
+    plot_rebit_posterior,
+    plot_decaying_exponentials,
+)
 from .expdesign import (
     RandomPauliHeuristic,
     RandomStabilizerStateHeuristic,
@@ -27,6 +32,9 @@ from .expdesign import (
 )
 
 __all__ = [
+    "rebit_coords",
+    "plot_rebit_posterior",
+    "plot_decaying_exponentials",
     "TomographyBasis",
     "pauli_basis",
     "gell_mann_basis",

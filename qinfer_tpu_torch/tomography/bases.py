@@ -31,8 +31,11 @@ __all__ = [
     "batched_cholesky_small",
     "batched_jacobi_eigh_small",
     "assemble_embedding",
+    "embed_hermitian",
     "embed_hermitian_host",
     "unembed_hermitian",
+    "hermitian_eigvalsh",
+    "hermitian_eigh_embedded",
 ]
 
 
@@ -62,6 +65,13 @@ def embed_hermitian_host(mat):
                      [mat.imag, mat.real]]).astype(np.float32)
 
 
+def embed_hermitian(rho):
+    """(..., d, d) complex Hermitian (a tensor or a NumPy array) → its
+    (..., 2d, 2d) real symmetric embedding, a tensor."""
+    rho = torch.as_tensor(rho)
+    return assemble_embedding(rho.real, rho.imag)
+
+
 def unembed_hermitian(m, d):
     """Inverse of the embedding (symmetrized block read-off), as a complex
     NumPy array: ``m`` (..., 2d, 2d) tensor or array."""
@@ -69,6 +79,24 @@ def unembed_hermitian(m, d):
     re = 0.5 * (m[..., :d, :d] + m[..., d:, d:])
     im = 0.5 * (m[..., d:, :d] - m[..., :d, d:])
     return (re + 1j * im).astype(np.complex64)
+
+
+def hermitian_eigvalsh(rho):
+    """Eigenvalues (ascending, (..., d)) of complex Hermitian matrices
+    through the real embedding, whose spectrum holds each eigenvalue
+    twice: the sorted duplicates are decimated."""
+    return torch.linalg.eigvalsh(embed_hermitian(rho))[..., ::2]
+
+
+def hermitian_eigh_embedded(rho, transform):
+    """Apply an elementwise spectral ``transform`` (e.g. clipping) to a
+    batch of complex Hermitian matrices entirely in the real embedding:
+    the matrices with eigenvalues ``transform(eigenvalues)``, as complex
+    NumPy (:func:`unembed_hermitian`)."""
+    d = rho.shape[-1]
+    ev, V = torch.linalg.eigh(embed_hermitian(rho))
+    m2 = torch.einsum("...ab,...b,...cb->...ac", V, transform(ev), V)
+    return unembed_hermitian(m2, d)
 
 
 def batched_cholesky_small(a):
@@ -187,6 +215,14 @@ class TomographyBasis:
         mt = m.to(torch.float32).transpose(-1, -2)
         flat = mt.reshape(m.shape[:-2] + (-1,))
         return 0.5 * (flat @ E.reshape(self.n_ops, -1).T)
+
+    def covariance_mtx_to_superop(self, cov):
+        """Lift a coordinate covariance matrix to a superoperator on
+        operators, ``Σ_ij cov_ij B_i ⊗ B_j`` as a (d, d, d, d) complex host
+        array (for plots)."""
+        cov = cov.detach().cpu().numpy() if torch.is_tensor(cov) else cov
+        cov = np.asarray(cov, dtype=np.complex64)
+        return np.einsum("ij,iab,jcd->abcd", cov, self._data, self._data)
 
     def __repr__(self):
         return (f"<TomographyBasis dims={self.dims} "

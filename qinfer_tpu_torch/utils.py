@@ -66,6 +66,41 @@ def multinomial_pdf(n, p):
     return torch.exp(log_pmf)
 
 
+#: the row length of :func:`cumsum_last`'s blocked scan on the card
+_SCAN_ROW = 4096
+
+
+def cumsum_last(x):
+    """``torch.cumsum(x, dim=-1)``, reproducible on the card. A CUDA
+    cumsum over one row (``x.numel() == x.shape[-1]``) is cub's
+    single-pass scan, whose decoupled look-back adds a tile's predecessors
+    in an order that depends on timing, so its float sums change from run
+    to run (a 10⁷-particle run's trajectory with them); that row takes
+    :func:`_blocked_cumsum`. Several rows, and every CPU tensor, take
+    ``torch.cumsum`` as it is."""
+    n = x.shape[-1]
+    if x.device.type != "cuda" or x.numel() != n or n == 0:
+        return torch.cumsum(x, dim=-1)
+    return _blocked_cumsum(x.reshape(n)).reshape(x.shape)
+
+
+def _blocked_cumsum(flat):
+    """The cumsum of a 1-D tensor as rows of ``_SCAN_ROW`` (PyTorch's
+    one-block-a-row scan: a fixed order) plus the scan of the rows'
+    totals, the same way; a row alone is scanned beside a copy of itself,
+    since one row would go back to cub."""
+    n = flat.shape[0]
+    if n <= _SCAN_ROW:
+        return torch.cumsum(torch.stack([flat, flat]), dim=-1)[0]
+    rows = -(-n // _SCAN_ROW)
+    if rows * _SCAN_ROW != n:
+        flat = torch.nn.functional.pad(flat, (0, rows * _SCAN_ROW - n))
+    scans = torch.cumsum(flat.view(rows, _SCAN_ROW), dim=-1)
+    totals = scans[:, -1]
+    scans = scans + (_blocked_cumsum(totals) - totals)[:, None]
+    return scans.reshape(-1)[:n]
+
+
 def sample_multinomial(generator, N, p, shape=()):
     """Multinomial count vectors ``shape + (k,)``, int32, each summing to
     ``N`` (``qinfer_tpu/utils.py:98``): ``N`` categorical draws a vector,

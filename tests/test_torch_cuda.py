@@ -775,3 +775,139 @@ def test_item8_gadfli_projection_equals_plain_to_the_bit(_card):
     torch.cuda.synchronize()
     assert jac.jacobi_project_lanes.launches == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("T, n, d", [(1, 4097, 1), (3, 131_072, 1),
+                                     (5, 1000, 3), (2, 5000, 255)])
+def test_batched_fill_is_one_launch_equal_to_plain_and_per_trial(_card, T,
+                                                                 n, d):
+    """The batched counting fill: ONE K3 launch over the T·n rows, equal
+    to the plain twin on the same flat counts and to each trial's own K3
+    fill of its rows, to the bit; every row's counts sum to n."""
+    from qinfer_tpu_torch.resamplers import counting_locations_batch_from_u
+
+    g = _gen(T * n + d)
+    w = torch.rand((T, n), generator=g, device=_card) ** 8 + 1e-12
+    w = w / w.sum(dim=1, keepdim=True)
+    x = torch.randn((T, n, d), generator=g, device=_card)
+    u = torch.rand((T,), generator=g, device=_card)
+    before = sr.streaming_resample_locations.launches
+    x_anc, m, starts = counting_locations_batch_from_u(u, w, x)
+    assert sr.streaming_resample_locations.launches == before + 1
+    assert torch.equal(m.reshape(T, n).sum(dim=1),
+                       torch.full((T,), n, device=_card))
+    plain = sr.streaming_resample_locations_plain(m, starts,
+                                                  x.reshape(T * n, d))
+    assert torch.equal(plain.view(torch.int32).reshape(T, n, d),
+                       x_anc.view(torch.int32))
+    for t in range(T):
+        rows = slice(t * n, (t + 1) * n)
+        alone = sr.streaming_resample_locations(
+            m[rows].contiguous(), (starts[rows] - t * n).contiguous(),
+            x[t].contiguous())
+        assert torch.equal(alone.view(torch.int32),
+                           x_anc[t].view(torch.int32))
+
+
+def test_batched_trials_sync_once_a_gated_step(_card):
+    """The batched trial engine copies to the host once on each step the
+    interval gate allows (the trials that resample) and on no other step,
+    beside the resamples' own syncs (the Cholesky check and the validity
+    rounds): with interval 8 over 32 steps, at most 4 gated steps of
+    syncs, each at most 1 + 1 + maxiter."""
+    import warnings
+
+    from qinfer_tpu_torch import SimplePrecessionModel, UniformDistribution
+    from qinfer_tpu_torch.perf_testing import perf_test_scan_batch
+
+    runner, seeds = perf_test_scan_batch(
+        SimplePrecessionModel(), 4096, UniformDistribution([[0.0, 1.0]]),
+        32, 4, resample_interval=8, return_runner=True, device=_card)
+    runner(seeds)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            runner(seeds)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    # the record's final .tolist() of the resample counts is one more
+    assert len(syncs) <= 4 * (1 + 1 + 10) + 1
+
+
+def test_trial_engine_on_the_card_converges_in_both_modes(_card):
+    from qinfer_tpu_torch import (AcceleratedPrecessionModel,
+                                  SimplePrecessionModel, UniformDistribution)
+    from qinfer_tpu_torch.perf_testing import perf_test_scan_batch
+
+    prior = UniformDistribution([[0.0, 1.0]])
+    for model, mesh in ((SimplePrecessionModel(), None),
+                        (SimplePrecessionModel(), [_card]),
+                        (AcceleratedPrecessionModel(), None)):
+        prec.fused_precession_update.launches = 0
+        rec = perf_test_scan_batch(model, 4096, prior, 40, 4, seed=1,
+                                   mesh=mesh, device=_card)
+        assert float(rec["loss"][:, -1].median()) < 5e-2
+        if isinstance(model, AcceleratedPrecessionModel):
+            assert prec.fused_precession_update.launches == 4 * 40
+
+
+def test_checkpoint_resume_on_the_card_is_bit_identical(_card, tmp_path):
+    """Save, load into an updater of another seed, and both continue to
+    the bit, with the moves' adapted scale (a CUDA generator's state
+    round-trips through the archive)."""
+    from qinfer_tpu_torch import (BinomialModel, SimplePrecessionModel,
+                                  SMCUpdater, UniformDistribution)
+    from qinfer_tpu_torch.checkpoint import load_updater, save_updater
+
+    model = BinomialModel(SimplePrecessionModel(), n_meas_max=16)
+
+    def make(seed):
+        return SMCUpdater(model, 20_000, UniformDistribution([[0.0, 1.0]]),
+                          seed=seed, n_mcmc_moves=2,
+                          compress_mcmc_record=True, mcmc_adapt=True,
+                          zero_weight_policy="reset", device=_card)
+
+    g = _gen(3)
+    ts = torch.rand((60,), generator=g, device=_card) * 10
+    outs = torch.randint(0, 17, (60,), generator=g, device=_card).tolist()
+    n16 = torch.tensor([16], dtype=torch.int32, device=_card)
+    a = make(1)
+    for i in range(30):
+        a.update(outs[i], {"t": ts[i:i + 1], "n_meas": n16})
+    save_updater(tmp_path / "a.npz", a)
+    b = make(2)
+    load_updater(tmp_path / "a.npz", b)
+    for i in range(30, 60):
+        for u in (a, b):
+            u.update(outs[i], {"t": ts[i:i + 1], "n_meas": n16})
+        assert torch.equal(a.particle_weights, b.particle_weights)
+        assert torch.equal(a.particle_locations, b.particle_locations)
+        assert a.resample_count == b.resample_count
+        assert a._mcmc_log_scale == b._mcmc_log_scale
+    assert a.resample_count > 0
+    cpu = SMCUpdater(model, 100, UniformDistribution([[0.0, 1.0]]),
+                     n_mcmc_moves=2, compress_mcmc_record=True,
+                     mcmc_adapt=True, device="cpu")
+    with pytest.raises(ValueError, match="cuda generator"):
+        load_updater(tmp_path / "a.npz", cpu)
+
+
+@pytest.mark.parametrize("n", [1, 4096, 131_072, 10_000_000])
+def test_single_row_cumsum_is_reproducible_on_the_card(_card, n):
+    """``utils.cumsum_last`` on one row (the counting pass's and PGH's
+    draw): the same bits on five calls, within 1e-6 of the total of the
+    float64 cumsum; on (T, n) rows it is ``torch.cumsum`` to the bit."""
+    from qinfer_tpu_torch.utils import cumsum_last
+
+    w = torch.rand((n,), generator=_gen(n), device=_card)
+    first = cumsum_last(w)
+    for _ in range(4):
+        assert torch.equal(cumsum_last(w), first)
+    ref = torch.cumsum(w.double(), dim=0)
+    assert float((first.double() - ref).abs().max()) <= 1e-6 * float(ref[-1])
+    rows = w[: n - n % 2].reshape(2, -1) if n > 1 else w.reshape(1, 1)
+    if rows.shape[0] > 1:
+        assert torch.equal(cumsum_last(rows), torch.cumsum(rows, dim=-1))

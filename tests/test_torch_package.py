@@ -27,7 +27,12 @@ def test_importing_the_port_leaves_jax_out():
             "qinfer_tpu_torch.expdesign_bench, "
             "qinfer_tpu_torch.finite_difference, "
             "qinfer_tpu_torch.horizon_bench, qinfer_tpu_torch.rb, "
-            "qinfer_tpu_torch.simple_est, qinfer_tpu_torch.models_bench; "
+            "qinfer_tpu_torch.simple_est, qinfer_tpu_torch.models_bench, "
+            "qinfer_tpu_torch.item8_bench, qinfer_tpu_torch.trials_bench, "
+            "qinfer_tpu_torch.checkpoint, qinfer_tpu_torch.clustering, "
+            "qinfer_tpu_torch.metrics, qinfer_tpu_torch.ipy, "
+            "qinfer_tpu_torch._due, qinfer_tpu_torch.version, "
+            "qinfer_tpu_torch.tomography.plotting_tools; "
             "print(sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'qinfer_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
