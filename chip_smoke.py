@@ -83,6 +83,20 @@ one line, and any failure exits non-zero without the final ``ok`` line:
    ``load_updater`` into an updater of another seed, and 200 more steps of
    both on the same experiments and outcomes, equal to the bit after
    every step (K3, K5 and K6 counted).
+   Then the parallel phase, 8 shards of one ensemble on the card
+   (``ParticleMesh([dev] * 8)``): ``perf_test_scan`` at 2²² x 256 with
+   ``AcceleratedPrecessionModel`` and the two-level
+   ``DistributedLiuWestResampler``, by the ring and by the butterfly
+   under one seed (|est − 0.7| < 0.05, the final states equal to the bit,
+   K1 and K2 once a step, K3 ONE launch a resample over all 8 shards'
+   rows), one resample timed by each route and by the plain Liu-West,
+   the ring's first fill replayed (each shard receives its ancestor's
+   block; K3 equal to its plain twin and to each shard's own fill),
+   BASELINE config 5 sharded over the 8 shards equal to the unsharded
+   run to the bit, and ``scaling_bench``'s precession and flagship legs at
+   1 and 8 shards (fidelity at least 0.90); each kernel's launches there
+   go under ``launches_parallel`` (K1-K3: the ring run; K4-K6: the
+   flagship leg at 8 shards).
    Then one more precession run records the largest |ω·t/2| that K1
    meets, and K1 is checked on that step's particles and t;
 6. timing: each kernel's time against its plain version's and, where one
@@ -144,6 +158,11 @@ TRIALS_INTERVALS = (0, 8)
 TRIALS_K1 = (4, 131_072, 64)
 #: the resume phase: particles, steps before the checkpoint and after it
 RESUME = (50_000, 200, 200)
+#: the parallel phase: particles, steps and shards of the sharded
+#: precession runs, their seed, and the scaling legs' shard counts
+PARALLEL = (N_MAIN, 256, 8)
+PARALLEL_SEED = 5
+SCALING_SHARDS = (1, 8)
 #: rows of each Jacobi batch held against host float64
 N_F64 = 2000
 #: the process path's resample fill: (particles, parameters)
@@ -1090,7 +1109,8 @@ def run_config5(torch, dev, card):
     ``SMCUpdater.expected_information_gain`` with
     ``candidate_chunk=64`` peaks at the same memory (within 10 %) for
     256 and for 1024 candidates. Returns K3's timing entry at the
-    recorded resample's shape."""
+    recorded resample's shape, and the unchunked run's final state and
+    posterior mean."""
     from qinfer_tpu_torch import expdesign_bench as eb
     from qinfer_tpu_torch.ops import streaming_resample as sr
     from qinfer_tpu_torch.smc import (SMCUpdater, _expected_information_gain,
@@ -1124,9 +1144,9 @@ def run_config5(torch, dev, card):
                     f"(timed run), peak memory {r['peak_memory_bytes']} B, "
                     f"launches over warm-up and timed run {launches} on "
                     f"{card}")
-        finals[chunk] = (r["state"], rs.first)
+        finals[chunk] = (r["state"], rs.first, est)
 
-    state, recorded = finals[0]
+    state, recorded, mean0 = finals[0]
     m, starts, x = _replay_fill(torch, dev, recorded, "config 5")
 
     model = SimplePrecessionModel()
@@ -1166,13 +1186,14 @@ def run_config5(torch, dev, card):
                 f"{peaks[0]} B at {pools[0]} candidates and {peaks[1]} B at "
                 f"{pools[1]} ({peaks[0] / table:.3f} and "
                 f"{peaks[1] / table:.3f} (2, n, chunk) float32 tables)")
-    return timed(
+    entry = timed(
         f"streaming_resample_locations n={n}, d=1 (config 5's first "
         f"resample)",
         lambda: sr.streaming_resample_locations(m, starts, x),
         lambda: sr.streaming_resample_locations_plain(m, starts, x),
         library=lambda: torch.repeat_interleave(x, m, dim=0, output_size=n),
         bound_at=bound(4 * n + 8 * n, 0))
+    return entry, state, mean0
 
 
 def run_models_path(torch, dev, card):
@@ -1458,33 +1479,29 @@ def _recording_k1_model(keep_from):
     return Recording()
 
 
-def _replay_batch_fill(torch, dev, recorded):
-    """A recorded batched resample's fill replayed from its inputs (the
-    per-trial offsets drawn again from the generator state it met): the
-    one K3 launch over the flat rows against the plain twin, and against
-    each trial's own K3 launch on its rows, to the bit. Each row's counts
-    sum to n; the counts of a 1-D call on the same offset and weights are
-    compared too (a 1-D cumsum on the card is another summation order, so
-    a span boundary may move by one slot) and the moved slots printed.
-    Returns ``(m, starts, flat rows, T')``."""
+def _replay_batch_fill(torch, dev, u, w, x, what):
+    """A recorded batched fill replayed from its inputs (``u`` (T',), ``w``
+    (T', n), ``x`` (T', n, d): the offsets drawn again from the generator
+    state the resample met): the one K3 launch over the flat rows against
+    the plain twin, and against each row block's own K3 launch, to the
+    bit. Each row's counts sum to n; the counts of a 1-D call on the same
+    offset and weights are compared too (a 1-D cumsum on the card is
+    another summation order, so a span boundary may move by one slot) and
+    the moved slots printed. Returns ``(m, starts, flat rows, T')``."""
     from qinfer_tpu_torch.ops import streaming_resample as sr
     from qinfer_tpu_torch.resamplers import (counting_locations_batch_from_u,
                                              counting_multiplicities_from_u)
 
-    gen_state, w, x = recorded
     tp, n, d = x.shape
-    g = torch.Generator(device=dev)
-    g.set_state(gen_state)
-    u = torch.rand((tp,), generator=g, device=dev)
     x_anc, m, starts = counting_locations_batch_from_u(u, w, x)
     flat = x.reshape(tp * n, d)
     require(torch.equal(m.reshape(tp, n).sum(dim=1),
                         torch.full((tp,), n, device=dev)),
-            "trials: a row's counts do not sum to n")
+            f"{what}: a row's counts do not sum to n")
     plain = sr.streaming_resample_locations_plain(m, starts, flat)
     require(torch.equal(plain.view(torch.int32),
                         x_anc.reshape(tp * n, d).view(torch.int32)),
-            "trials: the batched K3 fill differs from the plain twin")
+            f"{what}: the batched K3 fill differs from the plain twin")
     moved, shift = 0, 0
     for t in range(tp):
         rows = slice(t * n, (t + 1) * n)
@@ -1493,13 +1510,13 @@ def _replay_batch_fill(torch, dev, recorded):
             x[t].contiguous())
         require(torch.equal(alone.view(torch.int32),
                             x_anc[t].view(torch.int32)),
-                f"trials: trial {t}'s own K3 fill differs from its rows of "
+                f"{what}: block {t}'s own K3 fill differs from its rows of "
                 "the batched fill")
         m1, s1 = counting_multiplicities_from_u(u[t], w[t], n)
         moved += int((m1 != m[rows]).sum())
         shift = max(shift, int((s1 - (starts[rows] - t * n)).abs().max()))
-    say("main", f"trials: a batched K3 call over {tp} trials x {n} rows "
-                f"replayed: equal to the plain twin and to each trial's own "
+    say("main", f"{what}: a batched K3 call over {tp} x {n} rows "
+                f"replayed: equal to the plain twin and to each block's own "
                 f"K3 fill to the bit; 1-D counts on the same offsets move "
                 f"{moved} counts, first slots by at most {shift}")
     return m, starts, flat, tp
@@ -1522,7 +1539,8 @@ def run_trials_path(torch, dev, card):
     inputs each trial's last step gave it. Returns the timing entries of
     K3 at the replayed shape and of K1 at the trial with the largest
     |ω·t/2| of those inputs, and K1's launches on the accelerated run."""
-    from qinfer_tpu_torch import SimplePrecessionModel, UniformDistribution
+    from qinfer_tpu_torch import (ParticleMesh, SimplePrecessionModel,
+                                  UniformDistribution)
     from qinfer_tpu_torch.ops import precession as prec
     from qinfer_tpu_torch.ops import streaming_resample as sr
     from qinfer_tpu_torch.perf_testing import perf_test_scan_batch
@@ -1566,7 +1584,8 @@ def run_trials_path(torch, dev, card):
     T, n, steps = TRIALS
     for label, interval in ([("batched", i) for i in TRIALS_INTERVALS]
                             + [("sequential", 0)]):
-        mesh = [dev] if label == "sequential" else None
+        mesh = (ParticleMesh([dev], axis_name="trials")
+                if label == "sequential" else None)
         rs = (_recording_batch_resampler(torch) if mesh is None
               else LiuWestResampler(a=0.98))
         rec, counts, launches, wall, err, ratio = one_run(
@@ -1599,7 +1618,11 @@ def run_trials_path(torch, dev, card):
                     f"K3 launches {k3} on {card}")
     require(recorded is not None, "trials: no batched resample over two or "
                                   "more trials to replay")
-    m, starts, flat, tp = _replay_batch_fill(torch, dev, recorded)
+    gen_state, w, x = recorded
+    g = torch.Generator(device=dev)
+    g.set_state(gen_state)
+    u = torch.rand((x.shape[0],), generator=g, device=dev)
+    m, starts, flat, tp = _replay_batch_fill(torch, dev, u, w, x, "trials")
 
     Tk, nk, sk = TRIALS_K1
     rs = _recording_batch_resampler(torch)
@@ -1774,6 +1797,239 @@ def run_resume_path(torch, dev, card):
     return launches
 
 
+def _recording_distributed(mesh, exchange):
+    """A ``DistributedLiuWestResampler(a=0.98)`` on ``mesh`` that counts
+    its calls and keeps the inputs of its first one: the generator's
+    state, the weights and the particles."""
+    from qinfer_tpu_torch.parallel import DistributedLiuWestResampler
+
+    class Recording(DistributedLiuWestResampler):
+        calls = 0
+        first = None
+
+        def call_with_diagnostics(self, model, generator, w, x):
+            self.calls += 1
+            if self.first is None:
+                self.first = (generator.get_state(), w.clone(), x.clone())
+            return super().call_with_diagnostics(model, generator, w, x)
+
+    return Recording(mesh, a=0.98, exchange=exchange)
+
+
+def _resample_ms(torch, rs, model, w, x, reps=5):
+    """Wall time of one resample call in ms, each call synchronized (the
+    resampler waits for the card itself: its Cholesky verdict and
+    validity rounds), after one warm-up call."""
+    g = torch.Generator(device=w.device)
+    g.manual_seed(0)
+    rs.call_with_diagnostics(model, g, w, x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        rs.call_with_diagnostics(model, g, w, x)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def run_parallel_path(torch, dev, card, config5_state, config5_mean):
+    """Phase 5: the particle mesh, 8 shards on the card
+    (``ParticleMesh([dev] * 8)``), with every launch count set to 0 just
+    before each run and read just after.
+
+    (a) ``perf_test_scan`` with the main path's model
+    (``AcceleratedPrecessionModel``) at ``PARALLEL`` (2²² particles x 256
+    steps, truth ω = 0.7, seed ``PARALLEL_SEED``) sharded over the mesh,
+    with ``DistributedLiuWestResampler`` by the ring and then by the
+    butterfly: |est − 0.7| < 0.05, the two final states equal to the bit,
+    K1 and K2 once a step, K3 once a resample, no Jacobi kernel; beside
+    them, one resample of the recorded ensemble by the plain Liu-West and
+    by both exchanges, timed. (b) The ring run's first resample replayed:
+    its block exchange delivers each ancestor block whole, and its one K3
+    launch over the 8 shards' rows equals the plain twin and each shard's
+    own K3 fill to the bit. (c) BASELINE config 5 (``expdesign_bench``
+    at ``CONFIG5``, unchunked) sharded over the mesh: its final state and
+    posterior mean equal the unsharded run's (``config5_state``,
+    ``config5_mean``) to the bit, K3 once a resample. (d) The scaling
+    legs (``scaling_bench``) at ``SCALING_SHARDS``, seed 0: precession at
+    262 144 particles a shard x 32 steps (|est − 0.7| < 0.05) and the
+    flagship recipe at 8192 a shard x 150 steps, fidelity at least 0.90;
+    K3 once a resample in each run. Returns ``(launches of run (a) by
+    kernel, launches of the flagship at the largest D, K3's timing entry
+    at the replayed fill)``."""
+    from qinfer_tpu_torch import (AcceleratedPrecessionModel, ParticleMesh,
+                                  UniformDistribution)
+    from qinfer_tpu_torch import expdesign_bench as eb
+    from qinfer_tpu_torch import scaling_bench as sb
+    from qinfer_tpu_torch.ops import streaming_resample as sr
+    from qinfer_tpu_torch.parallel import DistributedLiuWestResampler
+    from qinfer_tpu_torch.parallel.resample import (
+        exchange_blocks, shard_systematic_ancestors)
+    from qinfer_tpu_torch.perf_testing import perf_test_scan
+    from qinfer_tpu_torch.resamplers import LiuWestResampler
+
+    counted = counted_wrappers()
+    t_phase = time.perf_counter()
+    n, steps, shards = PARALLEL
+    mesh = ParticleMesh([dev] * shards)
+    prior = UniformDistribution([[0.0, 1.0]])
+
+    def reset():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read():
+        return {name: fn.launches for name, fn in counted.items()}
+
+    # (a) sharded precession, ring then butterfly, one seed
+    perf_test_scan(AcceleratedPrecessionModel(), n, prior, 8,
+                   true_mps=[[0.7]], seed=PARALLEL_SEED,
+                   resampler=DistributedLiuWestResampler(mesh),
+                   sharding=mesh.particle_sharding)  # warm-up
+    finals, recorders, launches = {}, {}, None
+    for exchange in ("ring", "butterfly"):
+        rs = _recording_distributed(mesh, exchange)
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u, rec = perf_test_scan(AcceleratedPrecessionModel(), n, prior,
+                                steps, true_mps=[[0.7]], seed=PARALLEL_SEED,
+                                resampler=rs,
+                                sharding=mesh.particle_sharding)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read()
+        est = float(u.est_mean()[0])
+        require(abs(est - 0.7) < 0.05,
+                f"parallel {exchange}: est {est}, not within 0.05 of 0.7")
+        require(bool(torch.isfinite(u.particle_weights).all())
+                and bool(torch.isfinite(u.particle_locations).all()),
+                f"parallel {exchange}: NaN or inf in the final state")
+        require(got["fused_precession_update"] == steps
+                and got["precession_pr0"] == steps,
+                f"parallel {exchange}: K1/K2 launched "
+                f"{got['fused_precession_update']}/{got['precession_pr0']} "
+                f"times in {steps} steps")
+        require(got["streaming_resample_locations"] == u.resample_count
+                == rs.calls >= 1,
+                f"parallel {exchange}: K3 launched "
+                f"{got['streaming_resample_locations']} times for "
+                f"{u.resample_count} resamples")
+        require(all(v == 0 for k, v in got.items() if k.startswith("jacobi")),
+                f"parallel {exchange}: a Jacobi kernel ran: {got}")
+        require(u.sharding == mesh.particle_sharding,
+                f"parallel {exchange}: the updater lost its sharding")
+        finals[exchange], recorders[exchange] = u.state, rs
+        if launches is None:
+            launches = got
+        say("main", f"parallel {exchange}: {wall:.4f} s for {n} particles x "
+                    f"{steps} steps on {shards} shards = "
+                    f"{n * steps / wall:.6g} particle-updates/s, est "
+                    f"{est:.6f}, {u.resample_count} resamples, launches "
+                    f"{got} on {card}")
+    a, b = finals["ring"], finals["butterfly"]
+    require(all(torch.equal(getattr(a, f), getattr(b, f)) for f in (
+        "weights", "locations", "log_total_likelihood", "min_n_ess")),
+        "parallel: the ring and butterfly runs differ")
+    gen_state, w, x = recorders["ring"].first
+    times = {name: _resample_ms(torch, rs, AcceleratedPrecessionModel(), w,
+                                x)
+             for name, rs in (
+                 ("plain Liu-West", LiuWestResampler(a=0.98)),
+                 ("ring", DistributedLiuWestResampler(mesh,
+                                                      exchange="ring")),
+                 ("butterfly", DistributedLiuWestResampler(
+                     mesh, exchange="butterfly")))}
+    say("main", "parallel: ring and butterfly final states equal to the "
+                "bit; one resample of the first recorded ensemble (n = "
+                f"{n}), synchronized walls: " + ", ".join(
+                    f"{k} {v:.4f} ms" for k, v in times.items())
+        + f" on {card}")
+
+    # (b) the ring run's first two-level fill, replayed
+    g = torch.Generator(device=dev)
+    g.set_state(gen_state)
+    rs = recorders["ring"]
+    u1, u2, wv, xv = rs.fill_inputs(g, w, x)
+    recv_w, recv_x = exchange_blocks(mesh, u1, wv, xv, "ring")
+    anc = shard_systematic_ancestors(u1, wv.sum(dim=1))
+    require(torch.equal(recv_x, xv[anc]) and torch.equal(recv_w, wv[anc]),
+            "parallel: the ring exchange did not deliver each shard its "
+            "ancestor's block")
+    m, starts, flat, _ = _replay_batch_fill(torch, dev, u2, recv_w, recv_x,
+                                            "parallel")
+    say("main", f"parallel: the first resample's ancestor shards "
+                f"{anc.tolist()} (u1 = {float(u1):.6f})")
+
+    # (c) BASELINE config 5 on the mesh
+    cn, csteps, ccand = CONFIG5
+    reset()
+    r = eb.run_bench(cn, csteps, ccand, 0, dev,
+                     mesh=ParticleMesh([dev] * shards))
+    got = read()
+    require(r["posterior_mean"] == config5_mean
+            and torch.equal(r["state"].locations, config5_state.locations)
+            and torch.equal(r["state"].weights, config5_state.weights),
+            f"parallel config 5: posterior mean {r['posterior_mean']} on "
+            f"{shards} shards, {config5_mean} unsharded: not the same bits")
+    # the warm-up run and the timed run are the same run
+    require(got["streaming_resample_locations"] == 2 * r["resamples"] >= 2
+            and all(v == 0 for k, v in got.items()
+                    if k != "streaming_resample_locations"),
+            f"parallel config 5: launches {got} for {r['resamples']} "
+            f"resamples of each of its two runs")
+    say("main", f"parallel config 5 --virtual {shards}: {r['wall_s']:.4f} s "
+                f"for {r['particles']} particles x {csteps} steps x {ccand} "
+                f"candidates = {r['particle_updates_per_s']:.6g} "
+                f"particle-updates/s, posterior mean {r['posterior_mean']:.6f}"
+                f" equal to the unsharded run's to the bit, "
+                f"{r['resamples']} resamples, launches over warm-up and timed "
+                f"run {got} on {card}")
+
+    # (d) the scaling legs, one seed
+    legs = ((sb.PrecessionLeg(dev), 262_144, 32),
+            (sb.FlagshipLeg(dev), 8192, 150))
+    flagship = None
+    for leg, per, lsteps in legs:
+        sb.one_run(leg, ParticleMesh([dev]), per, sb.WARMUP_STEPS, 0)
+        base = None
+        for d in SCALING_SHARDS:
+            reset()
+            run = sb.one_run(leg, ParticleMesh([dev] * d), per * d, lsteps, 0)
+            got = read()
+            require(run["ok"] and abs(run.get("est", 0.7) - 0.7) < 0.05,
+                    f"scaling {leg.name} D={d}: {run}")
+            require(got["streaming_resample_locations"] == run["resamples"],
+                    f"scaling {leg.name} D={d}: K3 launched "
+                    f"{got['streaming_resample_locations']} times for "
+                    f"{run['resamples']} resamples")
+            base = base or run["updates_per_s"]
+            score = (f"fidelity {run['fidelity']:.6f}" if "fidelity" in run
+                     else f"est {run['est']:.6f}")
+            say("main", f"scaling {leg.name} D={d}: {run['wall_s']:.4f} s "
+                        f"for {run['particles']} particles x {lsteps} steps "
+                        f"= {run['updates_per_s']:.6g} particle-updates/s "
+                        f"(efficiency {run['updates_per_s'] / (d * base):.4f}"
+                        f"), {score}, {run['resamples']} resamples, "
+                        f"launches {got} on {card}")
+            if leg.name == "flagship":
+                flagship = got
+    say("main", f"parallel phase: {time.perf_counter() - t_phase:.1f} s "
+                "with its set-up")
+    rows = flat.shape[0]
+    entry = timed(
+        f"streaming_resample_locations n={rows}, d=1 (parallel: the "
+        f"two-level fill, one launch over {shards} shards x "
+        f"{rows // shards} rows)",
+        lambda: sr.streaming_resample_locations(m, starts, flat),
+        lambda: sr.streaming_resample_locations_plain(m, starts, flat),
+        library=lambda: torch.repeat_interleave(flat, m, dim=0,
+                                                output_size=rows),
+        bound_at=bound(4 * rows + 8 * rows, 0),
+        attach=dict(kernel="streaming_resample_locations",
+                    launches=launches["streaming_resample_locations"]))
+    return launches, flagship, entry
+
+
 def main(argv):
     kernels_only = argv == ["--kernels-only"]
     require(not argv or kernels_only,
@@ -1836,13 +2092,18 @@ def main(argv):
     run_moves_path(torch, dev, card, path_fids["process"])
     run_moves_path(torch, dev, card, flags=EIG_PATH, size=EIG_PATH_SIZE,
                    label="eig flagship")
-    extra.append(run_config5(torch, dev, card))
+    config5_entry, config5_state, config5_mean = run_config5(torch, dev,
+                                                             card)
+    extra.append(config5_entry)
     extra.extend(run_models_path(torch, dev, card))
     item8_entries, item8_k4 = run_item8_path(torch, dev, card)
     extra.extend(item8_entries)
     trials_entries, trials_k1 = run_trials_path(torch, dev, card)
     extra.extend(trials_entries)
     resume_launches = run_resume_path(torch, dev, card)
+    parallel_launches, flagship_launches, parallel_entry = run_parallel_path(
+        torch, dev, card, config5_state, config5_mean)
+    extra.append(parallel_entry)
     extra.append(late_step_k1(torch, dev)[0])
     results = time_kernels(timers + jac_timers, extra + jac_extra)
     require("jax" not in sys.modules, "JAX was imported")
@@ -1861,6 +2122,10 @@ def main(argv):
     for r in results:
         if resume_launches[r["name"]]:
             r["launches_resume"] = resume_launches[r["name"]]
+        # the sharded precession run (a), or the flagship leg on 8 shards
+        # for the kernels run (a) does not launch
+        r["launches_parallel"] = (parallel_launches[r["name"]]
+                                  or flagship_launches[r["name"]])
     print(json.dumps({"kernels": results}))
     print(card)
     print(json.dumps({"ok": True, "device": {

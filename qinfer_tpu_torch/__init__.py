@@ -1,7 +1,7 @@
 """qinfer_tpu_torch: the PyTorch + CUDA port of :mod:`qinfer_tpu`.
 
 A second package beside the JAX one, which stays the reference. Every
-module but ``parallel`` is ported: the precession SMC main path (models, the uniform
+module is ported: the precession SMC main path (models, the uniform
 prior, the SMC updater with Liu-West resampling, the PGH heuristic,
 ``perf_test`` and the benchmark), tomography
 (:mod:`qinfer_tpu_torch.tomography`: bases, priors, state, process and
@@ -19,10 +19,13 @@ distributions and heuristics (the derived models, vector-outcome
 the prior families, ``ExpSparseHeuristic``, the GADFLI prior;
 ``item8_bench``) and the trial engines (``perf_test_scan``,
 ``perf_test_scan_batch``; ``trials_bench``), checkpoint and resume
-(:mod:`.checkpoint`) and the auxiliaries (clustering, metrics, progress
-bars, plots), with the hot kernels hand-written in CUDA for Hopper
-(:mod:`qinfer_tpu_torch.ops`). Module names mirror the JAX package.
-Importing the package builds no kernel and imports no JAX.
+(:mod:`.checkpoint`), the auxiliaries (clustering, metrics, progress
+bars, plots) and the particle mesh (:mod:`.parallel`: a mesh of shards
+in one process, the two-level distributed Liu-West resampler, the
+engine-pool model; ``scaling_bench``), with the hot kernels
+hand-written in CUDA for Hopper (:mod:`qinfer_tpu_torch.ops`). Module
+names mirror the JAX package. Importing the package builds no kernel and
+imports no JAX.
 """
 
 from .version import __version__, version
@@ -101,11 +104,13 @@ from .expdesign import (ExperimentDesigner, OptimizationAlgorithms,
 from .clustering import NO_CLUSTER, particle_clusters
 from .perf_testing import perf_test, perf_test_multiple
 from .simple_est import load_data, simple_est_prec, simple_est_rb
+from .parallel import (DirectViewParallelizedModel, ParticleMesh,
+                       make_particle_sharding)
 from .ops.accelerated import AcceleratedPrecessionModel
 from .checkpoint import load_updater, save_updater
 from .ipy import IPythonProgressBar
 from ._due import BibTeX, Doi, due
-from . import checkpoint, perf_testing, rejuvenation, tomography
+from . import checkpoint, parallel, perf_testing, rejuvenation, tomography
 
 __all__ = [
     "version",
@@ -217,6 +222,9 @@ __all__ = [
     "simple_est_prec",
     "simple_est_rb",
     "load_data",
+    "ParticleMesh",
+    "make_particle_sharding",
+    "DirectViewParallelizedModel",
     "AcceleratedPrecessionModel",
     "save_updater",
     "load_updater",
@@ -225,6 +233,7 @@ __all__ = [
     "Doi",
     "BibTeX",
     "checkpoint",
+    "parallel",
     "perf_testing",
     "rejuvenation",
     "tomography",

@@ -150,8 +150,9 @@ def save_updater(path, updater):
 def load_updater(path, updater):
     """Restore a :func:`save_updater` checkpoint into an existing updater
     (which supplies the model, prior, resampler and options); every tensor
-    lands on the updater's device and the pool's index is rebuilt.
-    Returns the updater."""
+    lands on the updater's device, a sharded updater keeps its sharding
+    (the archive's ensemble must split into its mesh's shards), and the
+    pool's index is rebuilt. Returns the updater."""
     try:
         loaded = dict(np.load(path))
     except FileNotFoundError:
@@ -159,6 +160,9 @@ def load_updater(path, updater):
         loaded = dict(np.load(str(path) + ".npz"))
     data_record = loaded.pop("__data_record")
     norm_record = loaded.pop("__normalization_record")
+    # first, so that an ensemble the mesh refuses leaves the updater as it was
+    state = arrays_to_state(loaded, device=updater.device,
+                            sharding=updater.sharding)
     _restore_rejuvenation_record(updater, loaded)
     _restore_generator(loaded, "generator", updater.generator)
     if "__design_generator_state" in loaded:
@@ -167,7 +171,7 @@ def load_updater(path, updater):
                 device=updater.device)
         _restore_generator(loaded, "design_generator",
                            updater._design_generator)
-    updater.state = arrays_to_state(loaded, device=updater.device)
+    updater.state = state
     updater.data_record = list(data_record)
     updater.normalization_record = [float(x) for x in norm_record]
     updater._n_particles = int(updater.state.weights.shape[0])

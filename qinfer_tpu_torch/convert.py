@@ -22,8 +22,8 @@ import numpy as np
 import torch
 
 from . import distributions
-from .config import DEFAULT_DEVICE, resolve_device
 from .derived_models import GaussianRandomWalkModel
+from .parallel.mesh import placement, shard_state
 from .smc import SMCState
 from .tomography.bases import TomographyBasis
 from .tomography.distributions import GADFLIDistribution
@@ -48,17 +48,20 @@ _HOST_FIELDS = {
 }
 
 
-def state_from_numpy(arrays, device=DEFAULT_DEVICE):
-    """Build an :class:`SMCState` on ``device`` from a mapping of field name
-    to array (extra keys, such as a JAX ``key``, are ignored). Without a
-    CUDA device, pass ``device="cpu"``: the default raises there."""
-    device = resolve_device(device)
+def state_from_numpy(arrays, device=None, sharding=None):
+    """Build an :class:`SMCState` on ``device`` (the card by default) from a
+    mapping of field name to array (extra keys, such as a JAX ``key``, are
+    ignored). Without a CUDA device, pass ``device="cpu"``: the default
+    raises there. With a particle ``sharding`` the state lands on its
+    mesh's device, its particles checked to split into equal shards."""
+    device = placement(device, sharding)
     fields = {name: torch.tensor(np.asarray(arrays[name]), dtype=dtype,
                                  device=device)
               for name, dtype in _TENSOR_FIELDS.items()}
     fields.update({name: cast(np.asarray(arrays[name]).item())
                    for name, cast in _HOST_FIELDS.items()})
-    return SMCState(**fields)
+    state = SMCState(**fields)
+    return state if sharding is None else shard_state(state, sharding)
 
 
 def state_to_numpy(state):

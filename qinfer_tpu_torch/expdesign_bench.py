@@ -14,10 +14,16 @@ The precession model (``SimplePrecessionModel``), a uniform prior on
 
 One warm-up run, then one timed run from the same prior ensemble and
 seeds. Run with ``python -m qinfer_tpu_torch.expdesign_bench [--particles
-N] [--steps K] [--candidates C] [--chunk c]``. It refuses to run without a
-CUDA device unless ``--cpu`` asks for the CPU. Prints ONE JSON line, with
-``peak_memory_bytes`` the device's peak allocation in the timed run (null
-on the CPU); exits 1 when the posterior mean misses 0.7 by 0.05 or more.
+N] [--steps K] [--candidates C] [--chunk c] [--virtual D]``. It refuses to
+run without a CUDA device unless ``--cpu`` asks for the CPU. ``--virtual
+D`` shards the ensemble over D shards of a mesh on that one device
+(``ParticleMesh([device] * D)``), with n rounded down to a multiple of D
+and the plain ``LiuWestResampler``, as the JAX benchmark does: the
+sharding is a layout, so the run is the unsharded run of that n, to the
+bit. Prints ONE JSON line, with ``peak_memory_bytes`` the device's peak
+allocation in the timed run (null on the CPU) and ``mesh`` the shards and
+distinct devices (null without ``--virtual``); exits 1 when the
+posterior mean misses 0.7 by 0.05 or more.
 """
 
 from __future__ import annotations
@@ -31,19 +37,16 @@ import types
 import numpy as np
 import torch
 
-from .bench import card_label, parse_refusing
-from .config import DEFAULT_DEVICE, resolve_device
+from .bench import card_label
 from .distributions import UniformDistribution
 from .heuristics import PGH
+from .parallel.mesh import ParticleMesh, placement, shard_state
 from .resamplers import LiuWestResampler
 from .smc import (SMCState, _expected_information_gain, _update_step,
                   score_candidates)
 from .test_models import SimplePrecessionModel
 
 TRUE_OMEGA = 0.7
-#: flags of the JAX benchmark whose modules the port does not have yet
-#: (``--virtual``: the particle mesh over several devices)
-NOT_PORTED = ("virtual",)
 
 
 def candidate_spread(n_candidates, device):
@@ -79,13 +82,19 @@ def _sync(device):
 
 
 def run_bench(n_particles=10_000_000, n_steps=32, n_candidates=16, chunk=0,
-              device=DEFAULT_DEVICE, resampler=None):
+              device=None, resampler=None, mesh=None):
     """The benchmark: a warm-up run, then the timed run, both from one
     prior ensemble (seed 0) with the run's generator seeded 1. ``chunk``
     (0: none) must divide ``n_candidates``; ``resampler`` defaults to
-    ``LiuWestResampler(a=0.98)``. Returns the result's dict, with the final
+    ``LiuWestResampler(a=0.98)``. With a ``mesh`` (a
+    :class:`~qinfer_tpu_torch.parallel.ParticleMesh`) the ensemble of
+    ``n_particles`` rounded down to a multiple of its shards is sharded
+    over it, on its device. Returns the result's dict, with the final
     ``state`` beside it."""
-    device = resolve_device(device)
+    sharding = mesh.particle_sharding if mesh is not None else None
+    device = placement(device, sharding)
+    if mesh is not None:
+        n_particles = n_particles // mesh.n_devices * mesh.n_devices
     chunk = chunk if 0 < chunk < n_candidates else 0
     if chunk and n_candidates % chunk:
         raise ValueError("the candidates must be a multiple of the chunk")
@@ -95,6 +104,8 @@ def run_bench(n_particles=10_000_000, n_steps=32, n_candidates=16, chunk=0,
     g.manual_seed(0)
     start = SMCState.initial(
         UniformDistribution([[0.0, 1.0]]).sample(g, n_particles))
+    if sharding is not None:
+        start = shard_state(start, sharding)
     spread = candidate_spread(n_candidates, device)
 
     def run():
@@ -125,6 +136,9 @@ def run_bench(n_particles=10_000_000, n_steps=32, n_candidates=16, chunk=0,
         "wall_s": wall,
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
                               if device.type == "cuda" else None),
+        "mesh": (None if mesh is None else
+                 {"shards": mesh.n_devices,
+                  "distinct_devices": len(set(mesh.devices))}),
         "ok": abs(est - TRUE_OMEGA) < 0.05,
         "state": final,
     }
@@ -138,9 +152,12 @@ def main(argv=None):
     parser.add_argument("--chunk", type=int, default=0,
                         help="score the candidates this many at a time (0: "
                         "all at once)")
+    parser.add_argument("--virtual", type=int, default=0, metavar="D",
+                        help="shard the ensemble over D shards of a mesh on "
+                        "the one device (0: no mesh)")
     parser.add_argument("--cpu", action="store_true",
                         help="run on the CPU; the result names the CPU")
-    args = parse_refusing(parser, argv, NOT_PORTED)
+    args = parser.parse_args(argv)
     if args.cpu:
         device, device_name, card = torch.device("cpu"), "cpu", None
     elif not torch.cuda.is_available():
@@ -151,8 +168,10 @@ def main(argv=None):
         torch.backends.cuda.matmul.allow_tf32 = False
         device_name, card = torch.cuda.get_device_name(device), card_label()
     try:
+        mesh = (ParticleMesh([device] * args.virtual) if args.virtual > 0
+                else None)
         result = run_bench(args.particles, args.steps, args.candidates,
-                           args.chunk, device)
+                           args.chunk, device, mesh=mesh)
     except ValueError as exc:
         raise SystemExit(str(exc))
     del result["state"]

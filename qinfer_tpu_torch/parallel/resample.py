@@ -1,0 +1,258 @@
+"""Two-level Liu-West resampling over a particle mesh (counterpart of
+:mod:`qinfer_tpu.parallel.resample`).
+
+Two-level systematic resampling (Murray et al., "Parallel resampling in
+the particle filter"):
+
+1. *Shard level*: the D shard masses ``W_s`` are D super-particles; one
+   uniform ``u₁``, the same for every shard, draws a systematic
+   allocation over them, so output shard ``s`` takes the block of
+   ancestor shard ``A_s`` (:func:`shard_systematic_ancestors`). The blocks
+   travel by the mesh's ``ppermute``: a ring of D − 1 rounds, or a
+   butterfly of 3·log₂D rounds (:func:`butterfly_exchange_schedule`).
+   Both deliver block ``A_s`` to shard ``s`` exactly, so both give the
+   same bits.
+2. *Local level*: each shard draws its own uniform (``u₂``, (D,)) and
+   counts its n/D slots over the received block's weights; the fill of
+   every shard is ONE launch of kernel K3 over all D·n/D rows
+   (:func:`~qinfer_tpu_torch.resamplers.counting_locations_batch_from_u`:
+   shard s's offsets shifted by s·n/D).
+
+Copy count of particle i of shard d: ``E[#shards with A = d] · (n/D) ·
+w_i / W_d = n·w_i``, unbiased, with uniform output weights and n/D
+particles on every shard. The Liu-West kernel then shrinks the ancestors
+toward the GLOBAL mean, with the global covariance, both summed from
+per-shard partials by ``psum``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..config import EPS
+from ..resamplers import (Resampler, counting_locations_batch_from_u,
+                          propose_valid, shrinkage_factor)
+from ..utils import cumsum_last
+
+__all__ = ["DistributedLiuWestResampler", "shard_systematic_ancestors",
+           "butterfly_exchange_schedule", "exchange_blocks",
+           "two_level_fill"]
+
+
+def shard_systematic_ancestors(u, shard_masses):
+    """Level 1: the ancestor shard of every output shard, systematic over
+    the D shard masses at offset ``u`` (the CDF's first entry at or above
+    each position ``(s + u)/D``). (D,) int64."""
+    d = shard_masses.shape[0]
+    cdf = cumsum_last(shard_masses)
+    cdf = cdf / torch.clamp_min(cdf[-1], EPS)
+    positions = (torch.arange(d, dtype=cdf.dtype, device=cdf.device)
+                 + u) / d
+    return torch.clamp(torch.searchsorted(cdf, positions), 0, d - 1)
+
+
+def _marked(n, index):
+    """A (n,) bool tensor, True at ``index``; entries outside [0, n) are
+    dropped. (``index_fill_`` takes the value as a scalar argument; an
+    indexed assignment would copy it to the device and wait.)"""
+    out = torch.zeros(n + 1, dtype=torch.bool, device=index.device)
+    out.index_fill_(0, torch.where((index >= 0) & (index < n), index, n),
+                    True)
+    return out[:n]
+
+
+def butterfly_exchange_schedule(anc_shard, n_dev):
+    """The log-depth block exchange: block ``d`` reaches every output shard
+    ``s`` with ``anc_shard[s] == d`` in 3·log₂D rounds of fixed rotations
+    with data-dependent take masks, computed on ``anc_shard``'s device
+    (no host copy).
+
+    ``anc_shard`` is non-decreasing (systematic over the shard masses), so
+    each surviving source's destinations form one segment ``[lo_d, hi_d]``,
+    and the exchange is three collision-free phases, each shard relaying
+    at most one block at a time: (1) compact the survivors to a rank
+    prefix (backward hops 1, 2, …, D/2 on the bits of each distance
+    ``d_r − r``); (2) spread rank r to its segment start ``lo_r`` (forward
+    hops D/2, …, 1 on the bits of ``lo_r − r``); (3) broadcast within each
+    segment (forward hops D/2, …, 1; a shard takes the block from ``s − h``
+    when it lacks its own and both belong to one segment).
+
+    :return: ``(shifts, takes)``: the forward rotation of each round
+        (negative: backward) and a ``(3·log₂D, D)`` bool tensor,
+        ``takes[k, s]`` true where shard ``s`` replaces its buffer by the
+        one arriving from shard ``s − shifts[k]`` in round ``k``.
+    :raises ValueError: unless D is a power of two, at least 2.
+    """
+    D = int(n_dev)
+    if D < 2 or D & (D - 1):
+        raise ValueError("butterfly exchange needs a power-of-two mesh")
+    log_d = D.bit_length() - 1
+    dev = anc_shard.device
+    anc = anc_shard.to(torch.int64)
+    r = torch.arange(D, device=dev)
+    mult = torch.zeros(D, dtype=torch.int64, device=dev).index_add_(
+        0, anc, torch.ones_like(anc))
+    lo = torch.cumsum(mult, 0) - mult
+    alive = mult > 0
+    rank_of_d = torch.cumsum(alive.to(torch.int64), 0) - 1
+    n_surv = alive.sum()
+    # the source of each rank; ranks at or past n_surv are inactive
+    d_of_r = torch.full((D + 1,), D, dtype=torch.int64, device=dev)
+    d_of_r[torch.where(alive, rank_of_d, D)] = r
+    active = r < n_surv
+    d_safe = torch.clamp_max(d_of_r[:D], D - 1)
+    m = torch.where(active, d_safe - r, 0)  # compaction distance
+    delta = torch.where(active, lo[d_safe] - r, 0)  # spread distance
+    sentinel = D + r  # an inactive candidate matches no shard
+
+    shifts, takes = [], []
+    for k in range(log_d):  # compact: backward, lowest bit first
+        h = 1 << k
+        pos = torch.where(active, d_safe - m % h, sentinel)
+        moves = ((m // h) % 2 == 1) & active
+        takes.append(_marked(D, torch.where(moves, pos - h, D)))
+        shifts.append(-h)
+    for k in range(log_d - 1, -1, -1):  # spread: forward, highest first
+        h = 1 << k
+        pos = torch.where(active, r + delta - delta % (2 * h), sentinel)
+        moves = ((delta // h) % 2 == 1) & active
+        takes.append(_marked(D, torch.where(moves, pos + h, D)))
+        shifts.append(h)
+    have = _marked(D, torch.where(active, torch.clamp_max(lo[d_safe], D - 1),
+                                  D))
+    for k in range(log_d - 1, -1, -1):  # broadcast within the segments
+        h = 1 << k
+        take = torch.roll(have, h) & (anc == torch.roll(anc, h)) & ~have
+        shifts.append(h)
+        takes.append(take)
+        have = have | take
+    return shifts, torch.stack(takes)
+
+
+def exchange_blocks(mesh, u1, w, x, exchange="ring"):
+    """Level 1 on shard-stacked ``w`` (D, n/D) and ``x`` (D, n/D, d): the
+    ancestor shards at offset ``u1`` and the block exchange by the mesh's
+    ``ppermute`` (``'ring'``: D − 1 rounds, each shard taking the block
+    that comes from its ancestor; ``'butterfly'``:
+    :func:`butterfly_exchange_schedule`, the weights riding as one more
+    column). Returns the received ``(w, x)``, block ``A_s`` on shard s."""
+    D = mesh.n_devices
+    anc = shard_systematic_ancestors(u1, mesh.all_gather(w.sum(dim=1)))
+    if exchange == "butterfly":
+        shifts, takes = butterfly_exchange_schedule(anc, D)
+        buf = torch.cat([x, w[..., None]], dim=-1)
+        for k, shift in enumerate(shifts):
+            buf = torch.where(takes[k][:, None, None],
+                              mesh.ppermute(buf, shift), buf)
+        return buf[..., -1].contiguous(), buf[..., :-1].contiguous()
+    idx = mesh.axis_index(w.device)
+    recv_w, recv_x = w, x
+    for k in range(1, D):
+        take = anc == (idx - k) % D
+        recv_w = torch.where(take[:, None], mesh.ppermute(w, k), recv_w)
+        recv_x = torch.where(take[:, None, None], mesh.ppermute(x, k),
+                             recv_x)
+    return recv_w, recv_x
+
+
+def two_level_fill(mesh, u1, u2, w, x, exchange="ring"):
+    """The two-level systematic fill of shard-stacked ``w`` (D, n/D) and
+    ``x`` (D, n/D, d): the block exchange at ``u1``
+    (:func:`exchange_blocks`), then each shard's counting fill at its own
+    ``u2[s]``, ONE K3 launch over every shard's rows. (D, n/D, d)."""
+    recv_w, recv_x = exchange_blocks(mesh, u1, w, x, exchange)
+    return counting_locations_batch_from_u(u2, recv_w, recv_x)[0]
+
+
+class DistributedLiuWestResampler(Resampler):
+    """Liu-West resampling that decomposes over a 1-D particle mesh: the
+    port's resampler signature ``(model, generator, weights, locations)``
+    on an ensemble sharded over ``mesh``, with only the mesh's collectives
+    between shards.
+
+    Draws, in order, from ``generator``: ``u₁`` (one, for every shard),
+    ``u₂`` (one a shard), the proposals and each validity round's fresh
+    proposals (the JAX package folds the shard index into its key; the
+    laws agree, the streams do not). The validity rounds run until every
+    shard's slots are valid or ``maxiter`` rounds have passed; the
+    canonicalization always runs, and the output weights are 1/n.
+
+    :param mesh: the :class:`~qinfer_tpu_torch.parallel.ParticleMesh`.
+    :param str axis_name: its axis (must be the mesh's).
+    :param float a: Liu-West shrinkage (h = sqrt(1 − a²)).
+    :param int maxiter: validity redraw rounds.
+    :param float zero_cov_comp: diagonal jitter added to the covariance.
+    :param str exchange: ``'ring'`` (D − 1 rounds), ``'butterfly'``
+        (3·log₂D rounds; a power-of-two mesh only) or ``'auto'``
+        (butterfly when 3·log₂D < D − 1, on a power-of-two mesh). Ring and
+        butterfly give the same bits.
+    """
+
+    canonicalize = True
+
+    def __init__(self, mesh, axis_name="particles", a=0.98, h=None,
+                 maxiter=10, zero_cov_comp=1e-10, exchange="auto"):
+        if axis_name != mesh.axis_name:
+            raise ValueError(f"the mesh has axis {mesh.axis_name!r}, not "
+                             f"{axis_name!r}")
+        self.mesh = mesh
+        self.axis_name = axis_name
+        self.a = float(a)
+        self.h = (float(h) if h is not None
+                  else math.sqrt(max(1.0 - self.a ** 2, 0.0)))
+        self.maxiter = int(maxiter)
+        self.zero_cov_comp = float(zero_cov_comp)
+        if exchange not in ("auto", "ring", "butterfly"):
+            raise ValueError("exchange must be 'auto', 'ring' or "
+                             "'butterfly'")
+        n_dev = mesh.n_devices
+        pow2 = n_dev >= 2 and (n_dev & (n_dev - 1)) == 0
+        if exchange == "butterfly" and not pow2:
+            raise ValueError(f"butterfly exchange needs a power-of-two "
+                             f"mesh, got {n_dev} devices")
+        if exchange == "auto":
+            exchange = ("butterfly" if pow2 and 3 * (n_dev.bit_length() - 1)
+                        < n_dev - 1 else "ring")
+        self.exchange = exchange
+
+    def fill_inputs(self, generator, particle_weights, particle_locations):
+        """What a call's fill starts from: its offsets ``u1`` (0-d) and
+        ``u2`` (D,), the first draws, and the shard-stacked weights,
+        normalized by their global total (``psum`` of the shards' sums),
+        and locations."""
+        mesh = self.mesh
+        dev = particle_locations.device
+        u1 = torch.rand((), generator=generator, device=dev)
+        u2 = torch.rand((mesh.n_devices,), generator=generator, device=dev)
+        w = mesh.shard(particle_weights)
+        x = mesh.shard(particle_locations.contiguous())
+        return u1, u2, w / torch.clamp_min(mesh.psum(w.sum(dim=1)), EPS), x
+
+    def call_with_diagnostics(self, model, generator, particle_weights,
+                              particle_locations):
+        """:return: ``(weights (n,), locations (n, d), n_fallback)``,
+        ``n_fallback`` a 0-d int32 tensor counting the slots (of every
+        shard) that kept their ancestor."""
+        mesh = self.mesh
+        n, d = particle_locations.shape
+        dev = particle_locations.device
+        u1, u2, w, x = self.fill_inputs(generator, particle_weights,
+                                        particle_locations)
+        # global moments from per-shard partials
+        mu = mesh.psum(torch.bmm(w[:, None, :], x)[:, 0, :])
+        xc = x - mu
+        cov = mesh.psum(torch.bmm((xc * w[..., None]).mT, xc))
+        cov = cov + self.zero_cov_comp * torch.eye(d, dtype=cov.dtype,
+                                                   device=dev)
+        S_T = (shrinkage_factor(cov) * self.h).mT
+
+        x_anc = two_level_fill(mesh, u1, u2, w, x, self.exchange)
+        centers = self.a * x_anc + (1.0 - self.a) * mu
+        new_x, n_fallback, _ = propose_valid(model, generator, centers, S_T,
+                                             x_anc, self.maxiter)
+        new_x = model.canonicalize(mesh.unshard(new_x))
+        new_w = torch.full((n,), 1.0 / n, dtype=particle_weights.dtype,
+                           device=dev)
+        return new_w, new_x, n_fallback.sum().to(torch.int32)

@@ -13,8 +13,9 @@
   mesh the trials run batched on one device (a leading trial axis on
   every engine tensor: one proposal call, one likelihood call, one ESS
   gate and, where trials resample, one batched Liu-West resample with one
-  K3 launch a step); with a mesh (a list of devices) each device runs its
-  block of trials one after another, each with its own branching.
+  K3 launch a step); with a mesh (a ``'trials'`` ``ParticleMesh`` or a
+  list of devices) each device runs its block of trials one after
+  another, each with its own branching.
 
 Trial t of :func:`perf_test_scan_batch` is seeded ``trial_seeds[t]``, one
 32-bit word of ``numpy.random.SeedSequence([seed, t])``. Its generator
@@ -38,6 +39,7 @@ from . import rejuvenation as rj
 from .abstract_model import atleast_2d
 from .config import DEFAULT_DEVICE, EPS, resolve_device
 from .heuristics import PGH
+from .parallel.mesh import ParticleMesh, placement
 from .resamplers import LiuWestResampler
 from .smc import (SMCState, SMCUpdater, _reweight_batch, _simulate_batch,
                   _trial, _update_step, resample_interval_gate)
@@ -160,8 +162,8 @@ def perf_test_multiple(n_trials, model, n_particles, prior, n_exp,
 
 def perf_test_scan(model, n_particles, prior, n_exp, heuristic_factory=None,
                    true_mps=None, resample_thresh=0.5, resampler=None,
-                   seed=0, zero_weight_policy="reset",
-                   device=DEFAULT_DEVICE):
+                   seed=0, sharding=None, zero_weight_policy="reset",
+                   device=None):
     """One adaptive inference run as one loop over the engine's update step
     (``smc._update_step``, so one device→host copy a step, the ESS gate's),
     with the per-step record kept on the device until the end.
@@ -172,7 +174,9 @@ def perf_test_scan(model, n_particles, prior, n_exp, heuristic_factory=None,
     updater (seeded ``seed + 1``) draws its ensemble and its resamples.
     A time-dependent model moves the true parameters after each outcome
     (``update_timestep``). The card by default: without a CUDA device,
-    pass ``device="cpu"``.
+    pass ``device="cpu"``. With a particle ``sharding``
+    (``ParticleMesh.particle_sharding``) the updater's ensemble is sharded
+    over the mesh, on its device (see :class:`SMCUpdater`).
 
     :param heuristic_factory: ``f(updater) -> Heuristic`` (PGH by default).
     :return: ``(updater, record)``: the updater with the final state
@@ -180,7 +184,7 @@ def perf_test_scan(model, n_particles, prior, n_exp, heuristic_factory=None,
         (n_exp,), ``norm`` (n_exp,), ``est`` (n_exp, d) and the final
         ``true_mps`` (1, d).
     """
-    device = resolve_device(device)
+    device = placement(device, sharding)
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
     if true_mps is None:
@@ -191,7 +195,7 @@ def perf_test_scan(model, n_particles, prior, n_exp, heuristic_factory=None,
                          resample_thresh=resample_thresh,
                          resampler=resampler,
                          zero_weight_policy=zero_weight_policy,
-                         device=device)
+                         sharding=sharding, device=device)
     heuristic = (heuristic_factory(updater) if heuristic_factory is not None
                  else PGH(updater))
     st, true, record, log_norms = _scan_steps(
@@ -442,7 +446,8 @@ class TrialRunner:
 
 def perf_test_scan_batch(model, n_particles, prior, n_exp, n_trials,
                          resample_thresh=0.5, resampler=None, seed=0,
-                         mesh=None, zero_weight_thresh=1e-10,
+                         mesh=None, axis_name="trials",
+                         zero_weight_thresh=1e-10,
                          heuristic_factory=None, n_mcmc_moves=0,
                          mcmc_proposal_scale=2.38, resample_interval=0,
                          return_runner=False, device=DEFAULT_DEVICE):
@@ -465,9 +470,11 @@ def perf_test_scan_batch(model, n_particles, prior, n_exp, n_trials,
       kernel through ``fused_reweight`` (``AcceleratedPrecessionModel``:
       one K1 launch a trial) or draws Monte-Carlo noise take one call a
       trial; every other model one ``torch.func.vmap`` call for all.
-    * ``mesh`` a list of devices (the port's 1-D trial mesh): equal blocks
-      of trials in device order, each trial run alone with real branching;
-      ``n_trials`` must divide by ``len(mesh)``.
+    * ``mesh`` a :class:`~qinfer_tpu_torch.parallel.ParticleMesh` with
+      axis ``axis_name`` (``ParticleMesh(devices, axis_name="trials")``;
+      its devices may differ or repeat), or a list of devices: equal
+      blocks of trials in device order, each trial run alone with real
+      branching; ``n_trials`` must divide by the mesh's size.
 
     :param n_mcmc_moves: > 0 runs that many random-walk Metropolis sweeps
         (scale ``mcmc_proposal_scale``) after each resample of a trial,
@@ -505,6 +512,11 @@ def perf_test_scan_batch(model, n_particles, prior, n_exp, n_trials,
         runner = TrialRunner(lambda seeds: _run_batched(trials, seeds,
                                                         device))
     else:
+        if isinstance(mesh, ParticleMesh):
+            if mesh.axis_name != axis_name:
+                raise ValueError(f"the mesh has axis {mesh.axis_name!r}, "
+                                 f"not {axis_name!r}")
+            mesh = mesh.devices
         mesh = [resolve_device(dv) for dv in mesh]
         if not mesh or n_trials % len(mesh):
             raise ValueError(

@@ -296,51 +296,79 @@ class LiuWestResampler(Resampler):
         mu, cov = (weighted_moments if not batch else _batched_moments)(w, x)
         cov = cov + self.zero_cov_comp * torch.eye(d, dtype=cov.dtype,
                                                    device=dev)
-        # any L with L Lᵀ = Σ gives the same proposal law; the eigh route
-        # is the fallback for a Σ that Cholesky refuses, ensemble by
-        # ensemble
-        L, info = torch.linalg.cholesky_ex(cov)
-        bad = ((info != 0) | torch.isnan(L).flatten(-2).any(dim=-1)
-               ).reshape(-1)
-        if bool(bad.any()):
-            L = L.reshape(-1, d, d).clone()
-            cov_rows = cov.reshape(-1, d, d)
-            for t in torch.nonzero(bad).flatten().tolist():
-                L[t] = sqrtm_psd(cov_rows[t])
-            L = L.reshape(cov.shape)
-        S_T = (L * self.h).mT
+        S_T = (shrinkage_factor(cov) * self.h).mT
 
         x_anc = fill(u, w, x)
         centers = self.a * x_anc + (1.0 - self.a) * mu[..., None, :]
-
-        def propose():
-            z = torch.randn(x.shape, generator=generator, device=dev)
-            return centers + z @ S_T
-
-        def valid_of(y):
-            return model.are_models_valid(y.reshape(-1, d)).reshape(
-                y.shape[:-1])
-
-        new_x = propose()
-        n_fallback = torch.zeros(batch, dtype=torch.int32, device=dev)
-        if self.postselect and self.maxiter > 0:
-            valid = valid_of(new_x)
-            # early exit: the common case needs no redraw round at all
-            it = 0
-            while it < self.maxiter and not bool(valid.all()):
-                fresh = propose()
-                fresh_valid = valid_of(fresh)
-                take = ~valid & fresh_valid
-                new_x = torch.where(take[..., None], fresh, new_x)
-                valid = valid | fresh_valid
-                it += 1
-            self.redraw_rounds.append(it)
-            # slots still invalid inherit their (valid) ancestor
-            n_fallback = torch.sum(~valid, dim=-1).to(torch.int32)
-            new_x = torch.where(valid[..., None], new_x, x_anc)
-
+        new_x, n_fallback, rounds = propose_valid(
+            model, generator, centers, S_T, x_anc,
+            self.maxiter if self.postselect else 0)
+        if rounds is not None:
+            self.redraw_rounds.append(rounds)
         if self.canonicalize:
             new_x = model.canonicalize(new_x.reshape(-1, d)).reshape(
                 new_x.shape)
         new_w = torch.full(w.shape, 1.0 / n, dtype=w.dtype, device=dev)
         return new_w, new_x, n_fallback
+
+
+def shrinkage_factor(cov):
+    """``L`` with ``L Lᵀ = Σ`` for a covariance (d, d) or a batch of them
+    (..., d, d): the Cholesky factor, or, for a Σ that Cholesky refuses,
+    ensemble by ensemble, the symmetric square root (``sqrtm_psd``; any
+    such ``L`` gives the same proposal law). One device→host copy: the
+    verdict."""
+    d = cov.shape[-1]
+    L, info = torch.linalg.cholesky_ex(cov)
+    bad = ((info != 0) | torch.isnan(L).flatten(-2).any(dim=-1)
+           ).reshape(-1)
+    if bool(bad.any()):
+        L = L.reshape(-1, d, d).clone()
+        cov_rows = cov.reshape(-1, d, d)
+        for t in torch.nonzero(bad).flatten().tolist():
+            L[t] = sqrtm_psd(cov_rows[t])
+        L = L.reshape(cov.shape)
+    return L
+
+
+def propose_valid(model, generator, centers, S_T, x_anc, maxiter):
+    """The Liu-West proposals ``centers + z S_Tᵀ`` (``z`` standard normal
+    of ``centers``' shape (..., n, d)) with at most ``maxiter`` validity
+    redraw rounds against ``model.are_models_valid``: each round redraws
+    every slot and keeps the fresh proposal where the slot was invalid
+    and the fresh one is valid; the rounds stop early once every slot is
+    valid (one device→host copy a check). Slots still invalid keep their
+    ancestor ``x_anc``.
+
+    :return: ``(locations, n_fallback, rounds)``: ``n_fallback`` int32
+        counts the slots that kept their ancestor along the last axis but
+        one (a 0-d tensor for one ensemble); ``rounds`` is the number of
+        redraw rounds, None when ``maxiter`` is 0 (no validity check)."""
+    d = centers.shape[-1]
+    batch = centers.shape[:-2]
+
+    def propose():
+        z = torch.randn(centers.shape, generator=generator,
+                        device=centers.device)
+        return centers + z @ S_T
+
+    def valid_of(y):
+        return model.are_models_valid(y.reshape(-1, d)).reshape(
+            y.shape[:-1])
+
+    new_x = propose()
+    if maxiter <= 0:
+        return new_x, torch.zeros(batch, dtype=torch.int32,
+                                  device=centers.device), None
+    valid = valid_of(new_x)
+    # early exit: the common case needs no redraw round at all
+    it = 0
+    while it < maxiter and not bool(valid.all()):
+        fresh = propose()
+        fresh_valid = valid_of(fresh)
+        take = ~valid & fresh_valid
+        new_x = torch.where(take[..., None], fresh, new_x)
+        valid = valid | fresh_valid
+        it += 1
+    n_fallback = torch.sum(~valid, dim=-1).to(torch.int32)
+    return torch.where(valid[..., None], new_x, x_anc), n_fallback, it

@@ -32,12 +32,13 @@ import warnings
 import numpy as np
 import torch
 
-from .config import DEFAULT_DEVICE, EPS, resolve_device
+from .config import EPS
 from ._exceptions import ResamplerWarning, ZeroWeightError, ZeroWeightWarning
 from .abstract_model import (DifferentiableModel, FiniteOutcomeModel,
                              expparams_at, keyed_kwargs, n_expparams)
 from .derived_models import BinomialModel
 from .distributions import ParticleDistribution
+from .parallel.mesh import placement, shard_state
 from .resamplers import LiuWestResampler
 from . import rejuvenation as rj
 from .utils import (in_ellipsoid, mvee, particle_covariance_mtx,
@@ -459,13 +460,6 @@ def _update_step(model, resampler, state, outcome, eps, resample_thresh,
     return new_state, log_norm_host, was_zero > 0
 
 
-#: constructor options of the JAX ``SMCUpdater`` that this port does not
-#: have yet, with the value that means "off"
-_LATER_OPTIONS = {
-    "sharding": None,
-}
-
-
 class SMCUpdater:
     """Sequential Monte Carlo Bayesian updater over a particle ensemble.
 
@@ -480,8 +474,16 @@ class SMCUpdater:
     :param float zero_weight_thresh: "all zero" threshold (default 1e-10).
     :param bool canonicalize: apply ``model.canonicalize`` to prior samples.
     :param int seed: seed of the updater's :class:`torch.Generator`.
-    :param device: where the ensemble lives; the card by default. Without
-        a CUDA device, pass ``device="cpu"``: the default raises there.
+    :param device: where the ensemble lives; the card by default, or the
+        mesh's device with ``sharding``. Without a CUDA device, pass
+        ``device="cpu"``: the default raises there.
+    :param sharding: ``None``, or a particle sharding
+        (``ParticleMesh.particle_sharding``): the ensemble is D equal
+        blocks over the mesh's shards, so ``n_particles`` must divide by
+        D (:meth:`ParticleMesh.pad_particles`). The shards of one
+        ensemble share one device, and there sharding is a layout: every
+        step's arithmetic is the unsharded updater's, to the bit, and only
+        a ``DistributedLiuWestResampler`` resamples shard by shard.
 
     Resample-move (:mod:`qinfer_tpu_torch.rejuvenation`):
 
@@ -531,9 +533,6 @@ class SMCUpdater:
     a design generator of their own, seeded from ``seed``, in the design
     scorers (so scoring leaves the update's stream untouched, as the JAX
     package's ``_design_key`` does).
-
-    The one option of the JAX updater outside this port, ``sharding``,
-    raises :class:`NotImplementedError` when set to anything but ``None``.
     """
 
     def __init__(self, model, n_particles, prior, resample_thresh=0.5,
@@ -541,20 +540,12 @@ class SMCUpdater:
                  track_resampling_divergence=False,
                  zero_weight_policy="error",
                  zero_weight_thresh=None, canonicalize=True, seed=0,
-                 device=DEFAULT_DEVICE, n_mcmc_moves=0,
+                 sharding=None, device=None, n_mcmc_moves=0,
                  mcmc_proposal_scale=None, compress_mcmc_record=False,
                  mcmc_canonicalize=True, waste_free_stages=0,
                  mcmc_method="rwm", mcmc_adapt=False,
                  mcmc_target_accept=None, waste_free_kernel="rwm",
-                 waste_free_lw_seed=None, waste_free_beta=0.3, **options):
-        for name, value in options.items():
-            if name not in _LATER_OPTIONS:
-                raise TypeError(
-                    f"SMCUpdater() got an unexpected keyword argument "
-                    f"{name!r}")
-            if value != _LATER_OPTIONS[name]:
-                raise NotImplementedError(
-                    f"SMCUpdater option {name}={value!r} is not ported yet")
+                 waste_free_lw_seed=None, waste_free_beta=0.3):
         if zero_weight_policy not in ("error", "warn", "reset"):
             raise ValueError("zero_weight_policy must be 'error', 'warn' or "
                              "'reset'")
@@ -583,7 +574,8 @@ class SMCUpdater:
                                    else 1e-10)
         self._canonicalize = bool(canonicalize)
         self.seed = int(seed)
-        self.device = resolve_device(device)
+        self.device = placement(device, sharding)
+        self.sharding = sharding
         self.n_mcmc_moves = int(n_mcmc_moves)
         self.mcmc_proposal_scale = (None if mcmc_proposal_scale is None
                                     else float(mcmc_proposal_scale))
@@ -693,7 +685,10 @@ class SMCUpdater:
         locations = self.prior.sample(self.generator, self._n_particles)
         if self._canonicalize:
             locations = self.model.canonicalize(locations)
-        self._state = SMCState.initial(locations)
+        state = SMCState.initial(locations)
+        if self.sharding is not None:
+            state = shard_state(state, self.sharding)
+        self._state = state
         self.data_record = []
         self.normalization_record = []
         # the rejuvenation record: every experiment (full record), or a

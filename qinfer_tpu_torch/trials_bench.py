@@ -47,6 +47,7 @@ from .bench import card_label, profile_device_time
 from .config import resolve_device
 from .distributions import UniformDistribution
 from .ops import streaming_resample as sr
+from .parallel import ParticleMesh
 from .perf_testing import perf_test_scan_batch
 from .resamplers import LiuWestResampler
 from .test_models import SimplePrecessionModel
@@ -138,7 +139,7 @@ def main(argv=None):
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
     card = card_label() if device.type == "cuda" else "cpu"
-    mesh1 = [device]
+    mesh1 = ParticleMesh([device], axis_name="trials")
     results = []
     for mode in modes:
         n_trials = 1 if mode == "baseline" else args.trials

@@ -31,10 +31,9 @@ from qinfer_tpu_torch import tomography as ttomo
 from qinfer_tpu_torch.convert import state_from_numpy
 from qinfer_tpu_torch.tomography import bases as tb
 
-#: names of ``qinfer_tpu/__init__.py`` the port leaves to the parallel
-#: slice (or keeps as its own: ``ops``)
-LATER = {"ParticleMesh", "make_particle_sharding",
-         "DirectViewParallelizedModel"}
+#: names of ``qinfer_tpu/__init__.py`` the port does not export (none: the
+#: parallel names came last)
+LATER = set()
 
 
 def test_package_exports_every_name_of_the_jax_package():

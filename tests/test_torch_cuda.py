@@ -911,3 +911,124 @@ def test_single_row_cumsum_is_reproducible_on_the_card(_card, n):
     rows = w[: n - n % 2].reshape(2, -1) if n > 1 else w.reshape(1, 1)
     if rows.shape[0] > 1:
         assert torch.equal(cumsum_last(rows), torch.cumsum(rows, dim=-1))
+
+
+def _sharded_cloud(card, n, seed):
+    """Precession-like weights with their mass on a few of 8 shards."""
+    g = _gen(seed)
+    x = torch.rand((n, 1), generator=g, device=card)
+    w = torch.exp(-((torch.arange(n, device=card) - 0.2 * n) / (0.1 * n))
+                  ** 2) * torch.rand((n,), generator=g, device=card)
+    return w / w.sum(), x
+
+
+@pytest.mark.parametrize("exchange", ["ring", "butterfly"])
+def test_two_level_fill_is_one_k3_launch_equal_to_plain(_card, exchange):
+    """The two-level fill over 8 shards of one card: ONE K3 launch over
+    every shard's rows, equal to the plain twin on the same counts and to
+    each shard's own K3 fill, to the bit."""
+    from qinfer_tpu_torch.parallel import ParticleMesh
+    from qinfer_tpu_torch.parallel.resample import exchange_blocks
+    from qinfer_tpu_torch.resamplers import counting_locations_batch_from_u
+
+    mesh = ParticleMesh([_card] * 8)
+    n = 8 * 65_536
+    w, x = _sharded_cloud(_card, n, 4)
+    g = _gen(5)
+    u1 = torch.rand((), generator=g, device=_card)
+    u2 = torch.rand((8,), generator=g, device=_card)
+    recv_w, recv_x = exchange_blocks(mesh, u1, mesh.shard(w), mesh.shard(x),
+                                     exchange)
+    before = sr.streaming_resample_locations.launches
+    x_anc, m, starts = counting_locations_batch_from_u(u2, recv_w, recv_x)
+    assert sr.streaming_resample_locations.launches == before + 1
+    flat = recv_x.reshape(n, 1)
+    plain = sr.streaming_resample_locations_plain(m, starts, flat)
+    torch.cuda.synchronize()
+    assert torch.equal(plain.view(torch.int32),
+                       x_anc.reshape(n, 1).view(torch.int32))
+    rows = n // 8
+    for s in range(8):
+        part = slice(s * rows, (s + 1) * rows)
+        alone = sr.streaming_resample_locations(
+            m[part].contiguous(), (starts[part] - s * rows).contiguous(),
+            recv_x[s].contiguous())
+        assert torch.equal(alone.view(torch.int32),
+                           x_anc[s].view(torch.int32))
+
+
+def test_ring_equals_butterfly_on_the_card(_card):
+    from qinfer_tpu_torch import SimplePrecessionModel
+    from qinfer_tpu_torch.parallel import (DistributedLiuWestResampler,
+                                           ParticleMesh)
+
+    mesh = ParticleMesh([_card] * 8)
+    w, x = _sharded_cloud(_card, 8 * 65_536, 6)
+    outs = [DistributedLiuWestResampler(mesh, exchange=e)
+            .call_with_diagnostics(SimplePrecessionModel(), _gen(7), w, x)
+            for e in ("ring", "butterfly")]
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert abs(float(outs[0][1].mean()) - float(w @ x[:, 0])) < 0.01
+
+
+def test_sharded_scan_equals_unsharded_on_the_card(_card):
+    """The main path's model with the plain resampler: a run sharded over
+    8 shards of the card equals the unsharded run to the bit."""
+    from qinfer_tpu_torch import (AcceleratedPrecessionModel, ParticleMesh,
+                                  UniformDistribution)
+    from qinfer_tpu_torch.perf_testing import perf_test_scan
+
+    mesh = ParticleMesh([_card] * 8)
+    runs = [perf_test_scan(AcceleratedPrecessionModel(), 1 << 16,
+                           UniformDistribution([[0.0, 1.0]]), 64,
+                           true_mps=[[0.7]], seed=3, sharding=s,
+                           device=None if s else _card)
+            for s in (mesh.particle_sharding, None)]
+    (a, ra), (b, rb) = runs
+    assert a.sharding is not None and b.sharding is None
+    assert a.resample_count == b.resample_count > 0
+    assert torch.equal(a.particle_locations, b.particle_locations)
+    assert torch.equal(ra["loss"], rb["loss"])
+
+
+@pytest.mark.parametrize("exchange", ["ring", "butterfly"])
+def test_distributed_resample_waits_for_the_card_twice(_card, exchange):
+    """One two-level resample waits for the card twice, for its Cholesky
+    verdict and its validity check: the exchange and the butterfly's
+    schedule stay on the card. One plain Liu-West resample of the same
+    ensemble waits as often or more (its one-row counting pass writes
+    its last element from the host)."""
+    import warnings
+
+    from qinfer_tpu_torch import SimplePrecessionModel
+    from qinfer_tpu_torch.parallel import (DistributedLiuWestResampler,
+                                           ParticleMesh)
+    from qinfer_tpu_torch.resamplers import LiuWestResampler
+
+    class AllValid(SimplePrecessionModel):
+        def are_models_valid(self, modelparams):
+            return torch.ones(modelparams.shape[0], dtype=torch.bool,
+                              device=modelparams.device)
+
+        def canonicalize(self, modelparams):
+            return modelparams
+
+    w, x = _sharded_cloud(_card, 8 * 4096, 8)
+
+    def syncs(rs):
+        rs.call_with_diagnostics(AllValid(), _gen(1), w, x)  # warm-up
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                rs.call_with_diagnostics(AllValid(), _gen(1), w, x)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return sum("synchroniz" in str(c.message) for c in caught)
+
+    two_level = syncs(DistributedLiuWestResampler(
+        ParticleMesh([_card] * 8), exchange=exchange))
+    assert two_level == 2
+    assert syncs(LiuWestResampler(canonicalize=False)) >= two_level

@@ -122,8 +122,9 @@ def test_expdesign_bench_recovers_omega(chunk):
 def test_expdesign_bench_refuses_a_chunk_that_does_not_divide():
     with pytest.raises(ValueError, match="multiple"):
         eb.run_bench(256, 2, 16, 5, device="cpu")
-    with pytest.raises(SystemExit, match="--virtual is not ported yet"):
-        eb.main(["--cpu", "--virtual", "8"])
+    with pytest.raises(SystemExit, match="multiple"):
+        eb.main(["--cpu", "--virtual", "8", "--particles", "256",
+                 "--chunk", "5"])
 
 
 def test_new_entry_points_need_a_card_unless_asked_for_the_cpu(capsys):

@@ -300,7 +300,7 @@ def test_resampling_divergence_is_tracked_and_logged(caplog):
         assert len(lines) == u.resample_count
     assert qt.SMCUpdater(model, 8, prior, device="cpu") \
         .resampling_divergences is None
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="MeshSharding"):
         qt.SMCUpdater(model, 8, prior, device="cpu", sharding="mesh")
 
 

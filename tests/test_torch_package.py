@@ -32,7 +32,8 @@ def test_importing_the_port_leaves_jax_out():
             "qinfer_tpu_torch.checkpoint, qinfer_tpu_torch.clustering, "
             "qinfer_tpu_torch.metrics, qinfer_tpu_torch.ipy, "
             "qinfer_tpu_torch._due, qinfer_tpu_torch.version, "
-            "qinfer_tpu_torch.tomography.plotting_tools; "
+            "qinfer_tpu_torch.tomography.plotting_tools, "
+            "qinfer_tpu_torch.parallel, qinfer_tpu_torch.scaling_bench; "
             "print(sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'qinfer_tpu.'))))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -118,3 +119,19 @@ def test_plain_versions_run_on_cpu_tensors():
         m, torch.tensor([0, 0, 3, 3], dtype=torch.int32), x)
     np.testing.assert_array_equal(out.numpy(), [[2, 3], [2, 3], [2, 3],
                                                 [6, 7]])
+
+
+def test_parallel_names_are_exported():
+    """The three names the JAX package re-exports from its ``parallel``
+    module, and the module's own."""
+    from qinfer_tpu_torch import parallel
+
+    for name in ("ParticleMesh", "make_particle_sharding",
+                 "DirectViewParallelizedModel"):
+        assert name in qt.__all__ and getattr(qt, name) is getattr(parallel,
+                                                                    name)
+    assert set(parallel.__all__) >= {
+        "ParticleMesh", "make_particle_sharding", "initialize_multihost",
+        "DirectViewParallelizedModel", "DistributedLiuWestResampler",
+        "shard_systematic_ancestors", "butterfly_exchange_schedule"}
+    assert "parallel" in qt.__all__

@@ -196,9 +196,12 @@ def test_zero_weight_warn_and_reset_policies():
 @pytest.mark.parametrize("entry", ["SMCUpdater", "perf_test"])
 def test_entry_points_run_on_the_card_by_default(entry):
     """Without a ``device`` argument the updater and perf_test run on the
-    card; on a machine without one they raise and never run on the CPU."""
+    card; on a machine without one they raise and never run on the CPU.
+    The updater's default is ``None`` (the card, or the mesh's device when
+    it is sharded), perf_test's the card's name."""
     fn = getattr(qt, entry)
-    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert inspect.signature(fn).parameters["device"].default == (
+        None if entry == "SMCUpdater" else "cuda")
     args = (qt.SimplePrecessionModel(), 16,
             qt.UniformDistribution([[0.0, 1.0]]))
 
@@ -215,13 +218,15 @@ def test_entry_points_run_on_the_card_by_default(entry):
 
 
 def test_updater_refuses_options_outside_the_port():
-    """The one JAX updater option that the port does not have yet,
-    ``sharding``, raises NotImplementedError unless "off"; unknown keywords
+    """Every option of the JAX updater is ported: ``sharding`` takes a
+    mesh's particle sharding and refuses anything else; unknown keywords
     raise TypeError; the resampling diagnostics are ported."""
     args = (qt.SimplePrecessionModel(), 10,
             qt.UniformDistribution([[0.0, 1.0]]))
     cpu = {"device": "cpu"}
-    with pytest.raises(NotImplementedError):
+    jax_params = set(inspect.signature(q.SMCUpdater).parameters)
+    assert jax_params <= set(inspect.signature(qt.SMCUpdater).parameters)
+    with pytest.raises(TypeError, match="MeshSharding"):
         qt.SMCUpdater(*args, sharding=object(), **cpu)
     with pytest.raises(TypeError):
         qt.SMCUpdater(*args, no_such_option=1, **cpu)
