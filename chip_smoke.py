@@ -15,7 +15,11 @@ one line, and any failure exits non-zero without the final ``ok`` line:
    to their plain versions to the bit, on embedded Ginibre/BCSZ states
    pushed out of the PSD cone as Liu-West proposals are, and on random
    symmetric matrices, also against host float64 ``numpy.linalg.eigh`` on
-   a subsample), with the tolerance stated;
+   a subsample), with the tolerance stated; beside them, K4 at the
+   flagship leg's (65 536, 8, 8), ``torch.linalg.eigh`` (K6's library
+   call) at (50 000, 16, 16) or its refusal, and the projection past the
+   Jacobi kernels' d = 32 (``torch.linalg.eigh`` and the rebuild, the
+   route a ``PerformanceWarning`` announces) once at (50 000, 64, 64);
 4. engine: 20 reweight steps on the card against the same steps run by the
    plain path on the CPU, the device kernels of one engine reweight (K1
    alone), and ``perf_test`` at 4096 particles;
@@ -97,6 +101,22 @@ one line, and any failure exits non-zero without the final ``ok`` line:
    1 and 8 shards (fidelity at least 0.90); each kernel's launches there
    go under ``launches_parallel`` (K1-K3: the ring run; K4-K6: the
    flagship leg at 8 shards).
+   Then the process phase: one ensemble over 2 ranks of a
+   ``torch.distributed`` group, each a process of
+   ``qinfer_tpu_torch.parallel.worker`` on the card (gloo, staged
+   through host memory: NCCL refuses two ranks on one card): the sharded
+   precession run of the parallel phase at 2²² x 256 by the ring and by
+   the butterfly, and config 5; the ranks equal to the bit, ring =
+   butterfly, |est − 0.7| < 0.05, each rank's K1 and K2 once a step and
+   K3 once a resample (under ``launches_processes``: rank 0's ring run),
+   the run and config 5 against the same runs on a one-process mesh of 2
+   shards (|Δest| < 1e-4 and 5 combined posterior sd, resample counts
+   within ``PROCESS_RESAMPLE_BAR``, the records to rtol 1e-5 before the
+   first resample, that resample's inputs equal and its estimates within
+   5 standard errors), each rank's K1 at its last step (n = 2²¹) and K3
+   on its first fill (1 x 2²¹ rows) held against their plain versions
+   (K3 to the bit; their times under ``other_shapes``), and each run's
+   wall, rate and collectives' wall printed.
    Then one more precession run records the largest |ω·t/2| that K1
    meets, and K1 is checked on that step's particles and t;
 6. timing: each kernel's time against its plain version's and, where one
@@ -163,6 +183,14 @@ RESUME = (50_000, 200, 200)
 PARALLEL = (N_MAIN, 256, 8)
 PARALLEL_SEED = 5
 SCALING_SHARDS = (1, 8)
+#: the process phase: ranks of the mesh across processes (all on the one
+#: card, gloo through host memory), the bar on their resample count
+#: against the one-process run of the same shards (the two part after
+#: float order changes a PGH pick; the bar is stated in PERF.md), and the
+#: ranks' time limit
+PROCESSES = 2
+PROCESS_RESAMPLE_BAR = 10
+PROCESS_TIMEOUT_S = 300
 #: rows of each Jacobi batch held against host float64
 N_F64 = 2000
 #: the process path's resample fill: (particles, parameters)
@@ -587,6 +615,16 @@ def check_jacobi_kernels(torch, dev):
             no_library=no_projection,
             bound_at=jacobi_bound(a.shape[0], main_d, sweeps, True)))
     a16, s16 = inputs[16][0]
+    # the flagship leg on 8 shards (scaling_bench): 8 x 8192 two-qubit
+    # states, one projection a move call
+    a, sweeps = inputs[8][0]
+    a = a[:65_536].contiguous()
+    extra.append(timed(
+        "jacobi_project_lanes (65536, 8, 8) (the flagship leg, 8 shards)",
+        lambda a=a, s=sweeps: jac.jacobi_project_lanes(a, sweeps=s),
+        lambda a=a, s=sweeps: jac.jacobi_project_lanes_plain(a, sweeps=s),
+        no_library=no_projection,
+        bound_at=jacobi_bound(a.shape[0], 8, sweeps, True)))
     extra.append(timed(
         "jacobi_project_lanes (50000, 16, 16)",
         lambda: jac.jacobi_project_lanes(a16, sweeps=s16),
@@ -652,15 +690,73 @@ def check_jacobi_kernels(torch, dev):
         "jacobi_eigh_lanes (50000, 16, 16)",
         lambda: jac.jacobi_eigh_lanes(a16, sweeps=s16),
         lambda: jac.jacobi_eigh_lanes_plain(a16, sweeps=s16),
-        no_library="not timed at this shape",
+        **eigh_library(torch, a16),
         bound_at=jacobi_bound(a16.shape[0], 16, s16, False)))
+    wide_projection(torch, dev, g)
     return timers, extra
+
+
+#: the projection past the Jacobi kernels' gate, timed once: (matrices,
+#: embedded d) of a 5-qubit state model's resample (no TPU kernel covers
+#: it; the model warns with PerformanceWarning)
+WIDE = (50_000, 64)
+
+
+def wide_projection(torch, dev, g):
+    """``project_psd_embedded`` past d = 32, where it takes
+    ``torch.linalg.eigh`` (cuSOLVER) and rebuilds outside: its answer
+    against host float64 on a few rows, and its time by CUDA events on
+    ``WIDE`` random symmetric matrices, one call after a call on 1000 (the
+    full batch is skipped, and the rate of the small one printed, when the
+    small one shows it would pass 60 s); or cuSOLVER's refusal."""
+    import numpy as np
+    from qinfer_tpu_torch.tomography.models import project_psd_embedded
+
+    n, d = WIDE
+    a = _random_symmetric(torch, dev, n, d, g)
+    try:
+        t0 = time.perf_counter()
+        got = project_psd_embedded(a[:1000])
+        torch.cuda.synchronize()
+        small = time.perf_counter() - t0
+    except RuntimeError as exc:
+        cusolver_refusal(exc, a[:1000])
+        return
+    ref, _ = _f64_projection(np, a[:20].cpu().numpy())
+    err = float(np.abs(got[:20].cpu().numpy() - ref).max())
+    require(err <= 1e-4, f"project_psd_embedded d={d}: {err} from float64")
+    if small * n / 1000 > 60:
+        say("kernels", f"project_psd_embedded (1000, {d}, {d}) (d > 32: "
+                       f"torch.linalg.eigh): {small * 1e3:.1f} ms wall, "
+                       f"{small:.3g} ms a matrix; the full {n} skipped; "
+                       f"|· - f64| {err:.3g}")
+        return
+    try:
+        ms = event_ms(lambda: project_psd_embedded(a), reps=1)
+    except RuntimeError as exc:
+        cusolver_refusal(exc, a)
+        return
+    say("kernels", f"project_psd_embedded {tuple(a.shape)} (d > 32: "
+                   f"torch.linalg.eigh and the rebuild): {ms:.4f} ms by CUDA "
+                   f"events, one call; |· - f64| {err:.3g} on 20 rows")
+
+
+def cusolver_refusal(exc, a):
+    """Print cuSOLVER's refusal of ``project_psd_embedded``'s batch ``a``
+    (``CUSOLVER_STATUS_INVALID_VALUE``, the one status that means it);
+    re-raise any other error."""
+    if "CUSOLVER_STATUS_INVALID_VALUE" not in str(exc):
+        raise exc
+    say("kernels", f"project_psd_embedded {tuple(a.shape)}: "
+                   f"torch.linalg.eigh refuses the batch: "
+                   f"{str(exc).strip().splitlines()[0]}")
 
 
 def eigh_library(torch, a):
     """K6's library call, ``torch.linalg.eigh`` on the same batch, if
-    cuSOLVER takes it; else the refusal, and the time of the largest batch
-    (halving from ``a``'s) that it takes."""
+    cuSOLVER takes it; else the refusal (``CUSOLVER_STATUS_INVALID_VALUE``:
+    any other error is raised), and the time of the largest batch (halving
+    from ``a``'s) that it takes."""
     def call(b):
         return lambda: torch.linalg.eigh(b)
 
@@ -669,18 +765,22 @@ def eigh_library(torch, a):
         torch.cuda.synchronize()
         return dict(library=call(a))
     except RuntimeError as exc:
+        if "CUSOLVER_STATUS_INVALID_VALUE" not in str(exc):
+            raise
         refusal = str(exc).strip().splitlines()[0]
     b = a[:a.shape[0] // 2]
     while b.shape[0] >= 1:
         try:
             call(b)()
             torch.cuda.synchronize()
-        except RuntimeError:
+        except RuntimeError as exc:
+            if "CUSOLVER_STATUS_INVALID_VALUE" not in str(exc):
+                raise
             b = b[:b.shape[0] // 2]
             continue
         say("kernels", f"torch.linalg.eigh takes {b.shape[0]} of the "
-                       f"{a.shape[0]} (8, 8) matrices: {event_ms(call(b)):.4f}"
-                       f" ms by CUDA events")
+                       f"{a.shape[0]} {tuple(a.shape[1:])} matrices: "
+                       f"{event_ms(call(b)):.4f} ms by CUDA events")
         break
     return dict(no_library=f"torch.linalg.eigh refuses the batch "
                            f"{tuple(a.shape)}: {refusal}")
@@ -1949,7 +2049,7 @@ def run_parallel_path(torch, dev, card, config5_state, config5_mean):
     g = torch.Generator(device=dev)
     g.set_state(gen_state)
     rs = recorders["ring"]
-    u1, u2, wv, xv = rs.fill_inputs(g, w, x)
+    u1, u2, wv, xv, _ = rs.fill_inputs(g, w, x)
     recv_w, recv_x = exchange_blocks(mesh, u1, wv, xv, "ring")
     anc = shard_systematic_ancestors(u1, wv.sum(dim=1))
     require(torch.equal(recv_x, xv[anc]) and torch.equal(recv_w, wv[anc]),
@@ -2030,6 +2130,342 @@ def run_parallel_path(torch, dev, card, config5_state, config5_mean):
     return launches, flagship, entry
 
 
+def _run_ranks(torch, tasks, *args):
+    """Start ``PROCESSES`` ranks of ``qinfer_tpu_torch.parallel.worker``
+    on the card (gloo over a ``file://`` store in a fresh temporary
+    directory) and wait for them: each rank's RESULT lines, by task. A
+    rank that exits non-zero, outlives ``PROCESS_TIMEOUT_S`` or prints no
+    RESULT fails the phase; every rank is stopped before this returns."""
+    import subprocess
+    import tempfile
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "qinfer_tpu_torch.parallel.worker",
+               "--world", str(PROCESSES), "--init-method",
+               f"file://{tmp}/store", "--tasks", tasks, *map(str, args)]
+        procs = [subprocess.Popen(cmd + ["--rank", str(r)], cwd=ROOT,
+                                  env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(PROCESSES)]
+        outs, deadline = [], time.perf_counter() + PROCESS_TIMEOUT_S
+        try:
+            for p in procs:
+                try:
+                    outs.append(p.communicate(timeout=max(
+                        1.0, deadline - time.perf_counter()))[0])
+                except subprocess.TimeoutExpired:
+                    raise SmokeFailure(f"processes: a rank outlived "
+                                       f"{PROCESS_TIMEOUT_S} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    results = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        lines = [json.loads(ln[len("RESULT "):]) for ln in out.splitlines()
+                 if ln.startswith("RESULT ")]
+        require(p.returncode == 0 and lines,
+                f"processes: rank {r} exited {p.returncode} with "
+                f"{len(lines)} RESULT lines:\n{out[-4000:]}")
+        by_task = {}
+        for line in lines:
+            by_task.setdefault(line["task"], []).append(line)
+        results.append(by_task)
+    return results
+
+
+def _replicated(line):
+    """The numbers of a worker's RESULT line that every rank must hold to
+    the bit (not its rank, its walls and its own blocks)."""
+    return {k: v for k, v in line.items()
+            if k not in ("rank", "wall_s", "updates_per_s",
+                         "particle_updates_per_s", "candidate_scores_per_s",
+                         "peak_memory_bytes")
+            and not k.startswith("local")}
+
+
+def run_processes_path(torch, dev, card, config5_mean):
+    """Phase 5: one ensemble sharded over ``PROCESSES`` ranks of a
+    ``torch.distributed`` group, each rank a process of
+    ``qinfer_tpu_torch.parallel.worker`` on the card, gloo staged through
+    host memory (NCCL refuses two ranks on one card), the kernels built
+    already, each rank counting its own launches from 0 before each run.
+
+    (a) ``perf_test_scan`` with ``AcceleratedPrecessionModel`` at
+    ``PARALLEL``'s 2²² particles (2²¹ a rank) x 256 steps, truth 0.7, seed
+    ``PARALLEL_SEED``, ``DistributedLiuWestResampler`` by the ring and by
+    the butterfly: the ranks' estimates, resample counts and evidence
+    equal to the bit, ring = butterfly to the bit, |est − 0.7| < 0.05, K1
+    and K2 once a step and K3 once a resample on each rank; against the
+    same run on a one-process mesh of ``PROCESSES`` shards on the card,
+    |Δest| < 1e-4 and the resample counts within
+    ``PROCESS_RESAMPLE_BAR`` (the runs agree until float order changes a
+    PGH pick, then are two draws of one law; the distances printed).
+    The records of the two runs agree to rtol 1e-5 before the first
+    resample, which both make at the same step and meet with the same
+    generator state, the same particles and weights within rtol 1e-5; its
+    two estimates lie within 5 standard errors of two resamples of that
+    ensemble (the counting pass parts the runs there: at 2²² one ulp of a
+    running sum near 1 is a quarter of a slot, so an ulp of weight moves
+    slots), and the final estimates within 5 combined posterior sd as
+    well.
+    (b) BASELINE config 5 (``CONFIG5``) over the ranks with the two-level
+    resampler: the ranks equal to the bit, |mean − 0.7| < 0.05, K3 once a
+    resample; against the same run on the one-process mesh of
+    ``PROCESSES`` shards, the posterior mean after each step to rtol 1e-5
+    while the designs agree and before the first resample (at the same
+    step in both, if the designs agree through it), then the final means
+    within 5 combined posterior sd (PGH's inverse CDF over 10⁷ weights
+    rounds otherwise in the two layouts, so the designs may part from the
+    first step; where they part printed) and the resample counts within
+    ``PROCESS_RESAMPLE_BAR``; its distance to the unsharded run's
+    ``config5_mean`` (the plain Liu-West's trajectory, not this one's)
+    printed. Prints each run's wall, particle-updates/s and the wall of
+    the ranks' collectives. (c) The kernels at the ranks' shapes: each
+    rank's last K1 call of its ring run (n = 2²¹) against the plain
+    version (:func:`hold_k1`), and its first fill, replayed on the rank
+    (one K3 launch over 1 x 2²¹ rows), against the plain twin to the bit,
+    the rank's output and the parent's replay alike.
+    Returns ``(each kernel's launches on rank 0's ring run, timing
+    entries of K1 and K3 at rank 0's shapes)``."""
+    import tempfile
+
+    from qinfer_tpu_torch import (AcceleratedPrecessionModel, ParticleMesh,
+                                  UniformDistribution)
+    from qinfer_tpu_torch import expdesign_bench as eb
+    from qinfer_tpu_torch.ops import precession as prec
+    from qinfer_tpu_torch.ops import streaming_resample as sr
+    from qinfer_tpu_torch.parallel import DistributedLiuWestResampler
+    from qinfer_tpu_torch.perf_testing import perf_test_scan
+
+    t_phase = time.perf_counter()
+    n, steps, _ = PARALLEL
+    mesh = ParticleMesh([dev] * PROCESSES)
+    one_rs = _recording_distributed(mesh, "ring")
+    u, rec = perf_test_scan(
+        AcceleratedPrecessionModel(), n, UniformDistribution([[0.0, 1.0]]),
+        steps, true_mps=[[0.7]], seed=PARALLEL_SEED, resampler=one_rs,
+        sharding=mesh.particle_sharding)
+    one_est, one_resamples = float(rec["est"][-1, 0]), u.resample_count
+    one_sd = float(u.est_covariance_mtx()[0, 0]) ** 0.5
+    one_est_record = rec["est"][:, 0].tolist()
+    one_ess = rec["ess"].tolist()
+    del u, rec
+    cn, csteps, ccand = CONFIG5
+    mesh = ParticleMesh([dev] * PROCESSES)
+    one_c5 = eb.run_bench(cn, csteps, ccand, 0, dev,
+                          resampler=DistributedLiuWestResampler(mesh, a=0.98),
+                          mesh=mesh, record=True)
+    del one_c5["state"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as record:
+        results = _run_ranks(torch, "precession,config5", "--particles", n,
+                             "--steps", steps, "--seed", PARALLEL_SEED,
+                             "--config5", f"{cn},{csteps},{ccand}",
+                             "--record", record)
+        kept = [torch.load(os.path.join(record, f"rank{r}.pt"))
+                for r in range(PROCESSES)]
+    for task in ("precession", "config5"):
+        lines = [res.get(task, []) for res in results]
+        require(all(len(ln) == (2 if task == "precession" else 1)
+                    for ln in lines)
+                and all([_replicated(a) for a in ln]
+                        == [_replicated(a) for a in lines[0]]
+                        for ln in lines),
+                f"processes {task}: the ranks' replicated results differ")
+    ring, butterfly = results[0]["precession"]
+    require(all(ring[k] == butterfly[k]
+                for k in ("est", "resamples", "log_evidence", "est_record"))
+            and all(res["precession"][1]["local_ring_equals_butterfly"]
+                    for res in results),
+            "processes: the ring and butterfly runs differ")
+    est = ring["est"]
+    require(abs(est - 0.7) < 0.05 and ring["finite"],
+            f"processes: est {est}, not within 0.05 of 0.7")
+    for r, res in enumerate(results):
+        for run in res["precession"]:
+            got = run["local_launches"]
+            require(got["fused_precession_update"] == steps
+                    and got["precession_pr0"] == steps
+                    and got["streaming_resample_locations"]
+                    == run["resamples"] >= 1
+                    and all(v == 0 for k, v in got.items()
+                            if k.startswith("jacobi")),
+                    f"processes rank {r} {run['exchange']}: launches {got} "
+                    f"for {steps} steps and {run['resamples']} resamples")
+    d_est, d_res = abs(est - one_est), abs(ring["resamples"] - one_resamples)
+    # the first resample leaves uniform weights: ESS n
+    first = next((i for i, e in enumerate(one_ess) if e >= n * (1 - 1e-4)),
+                 None)
+    require(first is not None and abs(ring["ess_record"][first] - n)
+            <= 1e-4 * n, f"processes: the first resample (one-process step "
+                         f"{first}) is not the ranks' too")
+    rel = max((abs(a - b) / abs(b) for a, b in zip(
+        ring["est_record"][:first], one_est_record[:first])), default=0.0)
+    sd = math.hypot(ring["posterior_sd"], one_sd)
+    say("main", f"processes: {PROCESSES} ranks against the one-process "
+                f"mesh of {PROCESSES} shards: est {est:.9f} / "
+                f"{one_est:.9f} (|Δ| {d_est:.3g}, combined posterior sd "
+                f"{sd:.3g}), resamples {ring['resamples']} / "
+                f"{one_resamples} (|Δ| {d_res}); the estimates before the "
+                f"first resample (step {first}) within rtol {rel:.3g}")
+    require(rel <= 1e-5, f"processes: the ranks' estimates part from the "
+                         f"one-process mesh's by rtol {rel} before step "
+                         f"{first}")
+    require(d_est < 1e-4 and d_est < 5 * sd
+            and d_res <= PROCESS_RESAMPLE_BAR,
+            f"processes: {PROCESSES} ranks and the one-process mesh differ "
+            f"by {d_est} in the estimate ({sd} combined sd) and {d_res} "
+            f"resamples")
+    # the first resample: the ranks meet it with the one-process run's
+    # inputs, up to the reweights' float order; its two estimates are
+    # then two resamples of one weighted ensemble
+    gen_state = kept[0]["resample"][0]
+    w = torch.cat([k["resample"][1] for k in kept]).to(dev)
+    x = torch.cat([k["resample"][2] for k in kept]).to(dev)
+    one_gen, one_w, one_x = one_rs.first
+    w_rel = float(((w - one_w).abs() / one_w.abs().clamp_min(1e-30)).max())
+    require(all(torch.equal(k["resample"][0], gen_state) for k in kept)
+            and torch.equal(gen_state, one_gen.cpu())
+            and torch.equal(x, one_x) and w_rel <= 1e-5,
+            f"processes: the first resample's inputs differ from the "
+            f"one-process run's (weights by rtol {w_rel})")
+    mu = float(one_w @ one_x[:, 0])
+    se = float(one_w @ (one_x[:, 0] - mu) ** 2) ** 0.5 / math.sqrt(n)
+    d_first = abs(ring["est_record"][first] - one_est_record[first])
+    say("main", f"processes: the first resample met the one-process run's "
+                f"generator state and particles to the bit and its weights "
+                f"within rtol {w_rel:.3g}; resampled, the estimates differ "
+                f"by {d_first:.3g} (one resample's standard error "
+                f"{se:.3g})")
+    require(d_first < 5 * math.sqrt(2) * se,
+            f"processes: the first resample's estimates differ by "
+            f"{d_first}, more than 5 standard errors of two resamples")
+    del w, x, one_w, one_x, one_rs
+    for run in (ring, butterfly):
+        stage = [res["precession"][run is butterfly]["local_collective_s"]
+                 for res in results]
+        say("main", f"processes {run['exchange']}: {run['wall_s']:.4f} s "
+                    f"for {n} particles x {steps} steps on {PROCESSES} "
+                    f"ranks of the card = {run['updates_per_s']:.6g} "
+                    f"particle-updates/s, est {run['est']:.6f}, "
+                    f"{run['resamples']} resamples, {run['collective_calls']}"
+                    f" collectives a rank taking {min(stage):.4f}-"
+                    f"{max(stage):.4f} s (gloo, staged through host memory),"
+                    f" launches a rank {run['local_launches']} on {card}")
+    c5 = results[0]["config5"][0]
+    got = c5["local_launches"]
+    require(abs(c5["posterior_mean"] - 0.7) < 0.05,
+            f"processes config 5: posterior mean {c5['posterior_mean']}")
+    require(all(res["config5"][0]["local_launches"]
+                ["streaming_resample_locations"] == 2 * c5["resamples"]
+                for res in results),
+            f"processes config 5: launches {got} for {c5['resamples']} "
+            f"resamples of each of its two runs")
+    d_mean = abs(c5["posterior_mean"] - one_c5["posterior_mean"])
+    d_res = abs(c5["resamples"] - one_c5["resamples"])
+    sd = math.hypot(c5["posterior_sd"], one_c5["posterior_sd"])
+    # the runs make the same steps until their designs part (PGH's
+    # inverse CDF over 10⁷ weights of 1e-7, not dyadic, rounds otherwise
+    # in the two layouts) or the first resample does
+    part = next((i for i, (a, b) in enumerate(zip(c5["t_record"],
+                                                   one_c5["t_record"]))
+                 if a != b), csteps)
+    first = next((i for i, c in enumerate(one_c5["resample_record"]) if c),
+                 csteps)
+    alike = min(part, first)
+    rel = max((abs(a - b) / abs(b) for a, b in zip(
+        c5["mean_record"][:alike], one_c5["mean_record"][:alike])),
+        default=0.0)
+    say("main", f"processes config 5: {PROCESSES} ranks against the "
+                f"one-process mesh of {PROCESSES} shards: posterior mean "
+                f"{c5['posterior_mean']:.9f} / {one_c5['posterior_mean']:.9f}"
+                f" (|Δ| {d_mean:.3g}, combined posterior sd {sd:.3g}), "
+                f"resamples {c5['resamples']} / {one_c5['resamples']} (|Δ| "
+                f"{d_res}); the designs part at step {part}, the first "
+                f"resample at step {first}; the means of the {alike} steps "
+                f"before either within rtol {rel:.3g}")
+    require(rel <= 1e-5 and (part <= first or first == csteps
+                             or c5["resample_record"][first] == 1),
+            f"processes config 5: with the same designs, the ranks' means "
+            f"part from the one-process mesh's by rtol {rel} before step "
+            f"{alike}, or their first resample comes at another step")
+    require(d_mean < 5 * sd and d_res <= PROCESS_RESAMPLE_BAR,
+            f"processes config 5: {PROCESSES} ranks and the one-process "
+            f"mesh differ by {d_mean} in the mean ({sd} combined sd) and "
+            f"{d_res} resamples")
+    say("main", f"processes config 5 on {PROCESSES} ranks: "
+                f"{c5['wall_s']:.4f} s for {c5['particles']} particles x "
+                f"{csteps} steps x {ccand} candidates = "
+                f"{c5['particle_updates_per_s']:.6g} particle-updates/s, "
+                f"posterior mean {c5['posterior_mean']:.6f} "
+                f"(|Δ| {abs(c5['posterior_mean'] - config5_mean):.3g} from "
+                f"the unsharded plain Liu-West run's {config5_mean:.6f}), "
+                f"{c5['resamples']} resamples, {c5['collective_calls']} "
+                f"collectives a rank over warm-up and timed run taking "
+                f"{c5['local_collective_s']:.4f} s (rank 0), launches over "
+                f"both runs {got} on {card}")
+
+    # (c) the kernels at the ranks' shapes, on each rank's own inputs
+    for r, rank in enumerate(kept):
+        omega, w, t, outcome = (v.to(dev) if torch.is_tensor(v) else v
+                                for v in rank["k1"])
+        k1_err = hold_k1(omega, w, t, outcome, f"at rank {r}'s last step")
+        u2, recv_w, recv_x, m_rank, starts_rank, x_rank = (
+            v.to(dev) for v in rank["fill"])
+        rows = recv_x.shape[0] * recv_x.shape[1]
+        m, starts, flat, _ = _replay_batch_fill(
+            torch, dev, u2, recv_w, recv_x, f"processes rank {r}")
+        plain = sr.streaming_resample_locations_plain(m_rank, starts_rank,
+                                                      flat)
+        require(torch.equal(m, m_rank) and torch.equal(starts, starts_rank)
+                and torch.equal(plain.view(torch.int32), x_rank.reshape(
+                    rows, -1).view(torch.int32)),
+                f"processes rank {r}: the rank's K3 fill differs from the "
+                f"plain twin on its counts")
+        say("main", f"processes rank {r}: K1 at its last step (n = "
+                    f"{omega.shape[0]}, t = {t:.6g}) against its plain "
+                    f"version: max |dh| = {k1_err:.3g}; its first fill's K3 "
+                    f"launch over {recv_x.shape[0]} x {recv_x.shape[1]} rows "
+                    f"equal to the plain twin to the bit")
+        if r == 0:
+            k1 = (omega, w, t, outcome, k1_err)
+            k3 = (m, starts, flat, rows)
+    say("main", f"processes phase: {time.perf_counter() - t_phase:.1f} s "
+                "with its set-up")
+    launches = ring["local_launches"]
+    omega, w, t, outcome, k1_err = k1
+    nk = omega.shape[0]
+    k1_entry = timed(
+        f"fused_precession_update n={nk} (processes: rank 0's last step of "
+        f"the ring run, t = {t:.6g}, outcome {outcome})",
+        lambda: prec.fused_precession_update(omega, w, t, outcome,
+                                             normalize=False),
+        lambda: prec.fused_precession_update_plain(omega, w, t, outcome,
+                                                   normalize=False),
+        no_library="no one PyTorch call fuses the reweight and its sums",
+        bound_at=bound(12 * nk, 10 * nk),
+        attach=dict(kernel="fused_precession_update",
+                    launches=launches["fused_precession_update"],
+                    max_abs_err=k1_err))
+    m, starts, flat, rows = k3
+    k3_entry = timed(
+        f"streaming_resample_locations n={rows}, d=1 (processes: rank 0's "
+        f"first fill, one launch over its 1 x {rows} rows)",
+        lambda: sr.streaming_resample_locations(m, starts, flat),
+        lambda: sr.streaming_resample_locations_plain(m, starts, flat),
+        library=lambda: torch.repeat_interleave(flat, m, dim=0,
+                                                output_size=rows),
+        bound_at=bound(4 * rows + 8 * rows, 0),
+        attach=dict(kernel="streaming_resample_locations",
+                    launches=launches["streaming_resample_locations"]))
+    return launches, [k1_entry, k3_entry]
+
+
 def main(argv):
     kernels_only = argv == ["--kernels-only"]
     require(not argv or kernels_only,
@@ -2104,6 +2540,9 @@ def main(argv):
     parallel_launches, flagship_launches, parallel_entry = run_parallel_path(
         torch, dev, card, config5_state, config5_mean)
     extra.append(parallel_entry)
+    process_launches, process_entries = run_processes_path(
+        torch, dev, card, config5_mean)
+    extra.extend(process_entries)
     extra.append(late_step_k1(torch, dev)[0])
     results = time_kernels(timers + jac_timers, extra + jac_extra)
     require("jax" not in sys.modules, "JAX was imported")
@@ -2126,6 +2565,8 @@ def main(argv):
         # for the kernels run (a) does not launch
         r["launches_parallel"] = (parallel_launches[r["name"]]
                                   or flagship_launches[r["name"]])
+        # rank 0 of the process phase's ring run
+        r["launches_processes"] = process_launches[r["name"]]
     print(json.dumps({"kernels": results}))
     print(card)
     print(json.dumps({"ok": True, "device": {

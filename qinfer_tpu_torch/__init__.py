@@ -30,8 +30,8 @@ imports no JAX.
 
 from .version import __version__, version
 from .config import EPS, default_dtype, default_int_dtype, set_default_dtype
-from ._exceptions import (ApproximationWarning, ResamplerError,
-                          ResamplerWarning, ZeroWeightError,
+from ._exceptions import (ApproximationWarning, PerformanceWarning,
+                          ResamplerError, ResamplerWarning, ZeroWeightError,
                           ZeroWeightWarning)
 from .domains import Domain, IntegerDomain, MultinomialDomain, RealDomain
 from .abstract_model import (DifferentiableModel, FiniteOutcomeModel, Model,
@@ -121,6 +121,7 @@ __all__ = [
     "set_default_dtype",
     "ApproximationWarning",
     "ResamplerError",
+    "PerformanceWarning",
     "ResamplerWarning",
     "ZeroWeightError",
     "ZeroWeightWarning",

@@ -1,13 +1,20 @@
 """Warnings and exceptions of the port (counterparts of
 :mod:`qinfer_tpu._exceptions` used on the SMC main path)."""
 
-__all__ = ["ApproximationWarning", "ResamplerWarning", "ResamplerError",
-           "ZeroWeightWarning", "ZeroWeightError"]
+__all__ = ["ApproximationWarning", "PerformanceWarning", "ResamplerWarning",
+           "ResamplerError", "ZeroWeightWarning", "ZeroWeightError"]
 
 
 class ApproximationWarning(RuntimeWarning):
     """Emitted when an approximate likelihood cannot reach its requested
     accuracy (an ALE sample cap below the budget ``error_tol`` needs)."""
+
+
+class PerformanceWarning(UserWarning):
+    """Emitted at construction when a configuration is correct but leaves
+    the hand-written kernels for a slower route on the card: a tomography
+    model whose embedded dimension exceeds the Jacobi kernels' 32 projects
+    by ``torch.linalg.eigh`` (cuSOLVER) instead."""
 
 
 class ResamplerWarning(RuntimeWarning):

@@ -122,12 +122,24 @@ def _restore_rejuvenation_record(updater, arrays):
             updater._n_record = n_rec
 
 
+def _refuse_across_processes(updater, what):
+    sharding = getattr(updater, "sharding", None)
+    if sharding is not None and sharding.mesh.spans_processes:
+        raise NotImplementedError(
+            f"cannot {what} a checkpoint of an ensemble sharded across "
+            f"processes: each rank holds its own block, and one rank's "
+            f"block is not the ensemble (ROADMAP queue 1)")
+
+
 def save_updater(path, updater):
     """Checkpoint an updater's inference state (ensemble, records, the
     rejuvenation record and the generators' states) to one ``.npz`` file
     (``np.savez`` appends the extension if missing). Outcomes keep their
     dtype, so a restored record feeds the moves exactly what the saved one
-    did."""
+    did. An updater sharded across processes raises
+    :class:`NotImplementedError`: its rank holds one block, not the
+    ensemble."""
+    _refuse_across_processes(updater, "save")
     arrays = state_to_arrays(updater.state)
     arrays.update(_rejuvenation_record_arrays(updater))
     arrays.update(_generator_arrays("generator", updater.generator))
@@ -152,7 +164,9 @@ def load_updater(path, updater):
     (which supplies the model, prior, resampler and options); every tensor
     lands on the updater's device, a sharded updater keeps its sharding
     (the archive's ensemble must split into its mesh's shards), and the
-    pool's index is rebuilt. Returns the updater."""
+    pool's index is rebuilt. Returns the updater. An updater sharded
+    across processes raises :class:`NotImplementedError`."""
+    _refuse_across_processes(updater, "load")
     try:
         loaded = dict(np.load(path))
     except FileNotFoundError:

@@ -40,7 +40,8 @@ import torch
 from .bench import card_label
 from .distributions import UniformDistribution
 from .heuristics import PGH
-from .parallel.mesh import ParticleMesh, placement, shard_state
+from .parallel import DistributedLiuWestResampler
+from .parallel.mesh import ParticleMesh, placement, reducer_of, shard_state
 from .resamplers import LiuWestResampler
 from .smc import (SMCState, _expected_information_gain, _update_step,
                   score_candidates)
@@ -56,23 +57,32 @@ def candidate_spread(n_candidates, device):
                            dtype=torch.float32).to(device)
 
 
-def run_loop(model, resampler, state, n_steps, spread, chunk, generator):
+def run_loop(model, resampler, state, n_steps, spread, chunk, generator,
+             sharding=None, record=None):
     """Drive ``n_steps`` designed steps from ``state`` on ``generator``
     (PGH, candidate scoring, the best candidate's outcome at ω = 0.7, the
-    update) and return the final state."""
+    update) and return the final state. With the ``sharding`` of a mesh
+    across processes, ``state`` is the rank's block and the sums over
+    particles reduce over the ranks. A ``record`` list gains, after each
+    step, ``(t, posterior mean, resample count)``: the two tensors stay
+    on the device."""
     dev = state.locations.device
-    pgh = PGH(types.SimpleNamespace(model=model))
+    reducer = reducer_of(sharding)
+    pgh = PGH(types.SimpleNamespace(model=model, sharding=sharding))
     true = torch.full((1, 1), TRUE_OMEGA, device=dev)
     for idx in range(n_steps):
         base = pgh.propose(generator, state.weights, state.locations, idx)
         cand = {"t": base["t"][0] * spread}
         eig = score_candidates(_expected_information_gain, model,
                                state.weights, state.locations, cand,
-                               candidate_chunk=chunk or None)
+                               candidate_chunk=chunk or None, reducer=reducer)
         eps = {"t": cand["t"][torch.argmax(eig)].reshape(1)}
         outcome = model.simulate_experiment(generator, true, eps).reshape(-1)
         state, _, _ = _update_step(model, resampler, state, outcome[:1], eps,
-                                   0.5, 1e-10, generator)
+                                   0.5, 1e-10, generator, reducer=reducer)
+        if record is not None:
+            record.append((eps["t"][0], reducer.sum(
+                state.weights @ state.locations[:, 0]), state.resample_count))
     return state
 
 
@@ -82,15 +92,21 @@ def _sync(device):
 
 
 def run_bench(n_particles=10_000_000, n_steps=32, n_candidates=16, chunk=0,
-              device=None, resampler=None, mesh=None):
+              device=None, resampler=None, mesh=None, record=False):
     """The benchmark: a warm-up run, then the timed run, both from one
     prior ensemble (seed 0) with the run's generator seeded 1. ``chunk``
     (0: none) must divide ``n_candidates``; ``resampler`` defaults to
     ``LiuWestResampler(a=0.98)``. With a ``mesh`` (a
     :class:`~qinfer_tpu_torch.parallel.ParticleMesh`) the ensemble of
     ``n_particles`` rounded down to a multiple of its shards is sharded
-    over it, on its device. Returns the result's dict, with the final
-    ``state`` beside it."""
+    over it, on its device; on a mesh across processes every rank runs
+    this with the same arguments, holds its own block, resamples with
+    ``DistributedLiuWestResampler(mesh, a=0.98)`` by default (the plain
+    Liu-West has no form across processes) and reports the same numbers.
+    Returns the result's dict, with the final ``state`` (the rank's
+    block) beside it; with ``record``, also the timed run's ``t``,
+    posterior mean and resample count after each step (``t_record``,
+    ``mean_record``, ``resample_record``), read at its end."""
     sharding = mesh.particle_sharding if mesh is not None else None
     device = placement(device, sharding)
     if mesh is not None:
@@ -99,7 +115,10 @@ def run_bench(n_particles=10_000_000, n_steps=32, n_candidates=16, chunk=0,
     if chunk and n_candidates % chunk:
         raise ValueError("the candidates must be a multiple of the chunk")
     model = SimplePrecessionModel()
-    resampler = resampler or LiuWestResampler(a=0.98)
+    if resampler is None:
+        resampler = (DistributedLiuWestResampler(mesh, a=0.98)
+                     if mesh is not None and mesh.spans_processes
+                     else LiuWestResampler(a=0.98))
     g = torch.Generator(device=device)
     g.manual_seed(0)
     start = SMCState.initial(
@@ -108,19 +127,28 @@ def run_bench(n_particles=10_000_000, n_steps=32, n_candidates=16, chunk=0,
         start = shard_state(start, sharding)
     spread = candidate_spread(n_candidates, device)
 
-    def run():
+    def run(steps=None):
         g.manual_seed(1)
-        return run_loop(model, resampler, start, n_steps, spread, chunk, g)
+        return run_loop(model, resampler, start, n_steps, spread, chunk, g,
+                        sharding, steps)
 
     run()  # warm-up
     _sync(device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+    steps = [] if record else None
     t0 = time.perf_counter()
-    final = run()
+    final = run(steps)
     _sync(device)
     wall = time.perf_counter() - t0
-    est = float(final.weights @ final.locations[:, 0])
+    reducer = reducer_of(sharding)
+    est = float(reducer.sum(final.weights @ final.locations[:, 0]))
+    var = float(reducer.sum(final.weights
+                            @ (final.locations[:, 0] - est) ** 2))
+    records = {} if steps is None else {
+        "t_record": [float(t) for t, _, _ in steps],
+        "mean_record": [float(m) for _, m, _ in steps],
+        "resample_record": [c for _, _, c in steps]}
     return {
         "metric": "expdesign_eig_throughput",
         "particles": n_particles,
@@ -131,6 +159,7 @@ def run_bench(n_particles=10_000_000, n_steps=32, n_candidates=16, chunk=0,
         "candidate_scores_per_s": n_particles * n_steps * n_candidates
         / wall,
         "posterior_mean": est,
+        "posterior_sd": max(var, 0.0) ** 0.5,
         "true": TRUE_OMEGA,
         "resamples": final.resample_count,
         "wall_s": wall,
@@ -140,6 +169,7 @@ def run_bench(n_particles=10_000_000, n_steps=32, n_candidates=16, chunk=0,
                  {"shards": mesh.n_devices,
                   "distinct_devices": len(set(mesh.devices))}),
         "ok": abs(est - TRUE_OMEGA) < 0.05,
+        **records,
         "state": final,
     }
 

@@ -20,7 +20,7 @@ from .config import EPS
 from .utils import cumsum_last
 
 __all__ = ["Heuristic", "PGH", "ExpSparseHeuristic", "IdentityHeuristic",
-           "categorical_inverse_cdf"]
+           "categorical_inverse_cdf", "mesh_inverse_cdf"]
 
 
 def categorical_inverse_cdf(generator, weights):
@@ -40,6 +40,41 @@ def categorical_inverse_cdf(generator, weights):
     v = torch.minimum(u * total, below_total)
     return torch.searchsorted(cdf, v, right=True).clamp_max(
         weights.shape[-1] - 1)
+
+
+def mesh_inverse_cdf(generator, weights, locations, mesh, k=1):
+    """:func:`categorical_inverse_cdf` over an ensemble sharded across
+    processes, ``k`` draws: ``weights`` (n/D,) and ``locations`` (n/D, d)
+    are this rank's block, and ``generator`` must draw the same values on
+    every rank. Four steps, two of them collectives: the shards' totals
+    are all-gathered; ``k`` uniforms on the global total pick each draw's
+    shard; the owner searches its own CDF; each rank's candidate rows
+    (zero where it owns no draw) are all-gathered and the owners' kept.
+
+    :return: ``(rows (k, d), shard (k,), index (k,), mine (k,))``: the
+        drawn rows, the same on every rank, and each draw's shard and row
+        index in that shard (valid where ``mine``, the draws of this
+        rank)."""
+    cdf = cumsum_last(weights)
+    totals = mesh.all_gather(cdf[-1:])  # (D,)
+    upper = torch.cumsum(totals, dim=0)
+    total = upper[-1:]
+    u = torch.rand((k,), generator=generator, device=weights.device,
+                   dtype=weights.dtype)
+    v = torch.minimum(u * total, torch.nextafter(total, torch.zeros_like(
+        total)))
+    shard = torch.searchsorted(upper, v, right=True).clamp_max(
+        mesh.n_devices - 1)
+    mine = shard == mesh.rank
+    local_total = cdf[-1:]
+    local_v = torch.minimum(v - (upper - totals)[shard], torch.nextafter(
+        local_total, torch.zeros_like(local_total)))
+    index = torch.searchsorted(cdf, local_v, right=True).clamp_max(
+        weights.shape[0] - 1)
+    cand = torch.where(mine[:, None], locations[index], 0.0)
+    rows = mesh.all_gather(cand[None])  # (D, k, d)
+    return (rows[shard, torch.arange(k, device=rows.device)], shard, index,
+            mine)
 
 
 class Heuristic:
@@ -83,6 +118,11 @@ class PGH(Heuristic):
     distribution of the reference's redraw-until-distinct loop, with no
     loop); the distance is clamped below by ``min_separation`` for exact
     location ties between distinct particles.
+
+    An updater sharded across processes (its ``sharding`` on a mesh that
+    spans them) draws both particles by :func:`mesh_inverse_cdf`, the
+    owner of the first zeroing its weight for the second, so every rank
+    proposes the same experiment.
     """
 
     def __init__(self, updater, inv_field="x_", t_field="t",
@@ -96,8 +136,20 @@ class PGH(Heuristic):
         self.other_fields = dict(other_fields or {})
         self.min_separation = float(min_separation)
 
+    def _process_mesh(self):
+        sharding = getattr(self._updater, "sharding", None)
+        if sharding is not None and sharding.mesh.spans_processes:
+            return sharding.mesh
+        return None
+
     def propose(self, generator, weights, locations, idx_exp):
         p = torch.clamp_min(weights, EPS)
+        mesh = self._process_mesh()
+        if mesh is not None:
+            x1, _, i, mine = mesh_inverse_cdf(generator, p, locations, mesh)
+            p = torch.where(mine, p.scatter(0, i, 0.0), p)
+            x2 = mesh_inverse_cdf(generator, p, locations, mesh)[0]
+            return {k: v[0] for k, v in self._fields(x1, x2).items()}
         i = categorical_inverse_cdf(generator, p)
         j = categorical_inverse_cdf(generator, p.scatter(0, i, 0.0))
         eps = self._fields(locations[i], locations[j])  # x₁, x₂: (1, d)

@@ -1,13 +1,15 @@
 """The particle mesh (counterpart of :mod:`qinfer_tpu.parallel`).
 
 The JAX package shards the particle axis over a 1-D device mesh and lets
-XLA insert the collectives; the port holds the D shards of a mesh in one
-process (:class:`ParticleMesh`, whose collectives act on the
-shard-stacked view of a tensor) and runs the same engine on them. The
-two-level :class:`DistributedLiuWestResampler` resamples shard by shard
-with the mesh's collectives, and :class:`DirectViewParallelizedModel`
-spreads a likelihood over a pool of engines, as the reference package
-does.
+XLA insert the collectives; the port's :class:`ParticleMesh` holds the D
+shards of an ensemble in one process, or one shard a rank of a
+``torch.distributed`` group after :func:`initialize_multihost`, and its
+collectives act on the stacked view of the shards a process holds; the
+engine reduces its sums over particles through the mesh. The two-level
+:class:`DistributedLiuWestResampler` resamples shard by shard with the
+mesh's collectives, :class:`DirectViewParallelizedModel` spreads a
+likelihood over a pool of engines, as the reference package does, and
+:mod:`.worker` is the entry point of one rank.
 """
 
 from .mesh import (

@@ -1,42 +1,63 @@
 """The particle mesh (counterpart of :mod:`qinfer_tpu.parallel.mesh`).
 
-A :class:`ParticleMesh` is a 1-D mesh of D shards over a list of torch
-devices. A tensor sharded over it along the particle axis is D equal
-contiguous blocks of that axis (the JAX package's ``P('particles')``
-layout). The mesh's collectives act on the shard-stacked view
-``(D, n/D, ...)`` of such a tensor (:meth:`ParticleMesh.shard`):
-``psum`` sums over the shards in mesh order, ``all_gather`` gives every
-shard the stacked view, ``ppermute`` rolls it along the shard axis and
-``axis_index`` numbers the shards. That is ``shard_map`` written as a
-batch over the shard axis; a backend over a process group would give the
-same four methods each shard's own block.
+A :class:`ParticleMesh` is a 1-D mesh of D shards. A tensor sharded over
+it along the particle axis is D equal contiguous blocks of that axis (the
+JAX package's ``P('particles')`` layout): shard s holds rows
+``[s·n/D, (s+1)·n/D)``. The mesh's collectives act on the *local stacked
+view* ``(L, n/D, ...)`` of such a tensor (:meth:`ParticleMesh.shard`): the
+L shards that this process holds, stacked. ``psum`` sums over every shard
+of the mesh in mesh order, ``all_gather`` gives every shard the ``(D,
+...)`` stack of all shards' values, ``ppermute(shift)`` sends shard s's
+block to shard ``(s + shift) mod D``, and ``axis_index`` numbers the local
+shards. That is ``shard_map`` written as a batch over the shard axis.
 
-One process holds every shard here, so the shards of one ensemble share
-one device: ``ParticleMesh([dev] * 8)`` is a virtual mesh of 8 shards on
-``dev``, the counterpart of the JAX package's
-``--xla_force_host_platform_device_count``. On it, sharding is a layout:
-the engine's arithmetic is the unsharded one's, and only
-:class:`~qinfer_tpu_torch.parallel.resample.DistributedLiuWestResampler`
-changes the algorithm, where the caller asks for it. A mesh over
-distinct devices serves trials (``perf_test_scan_batch``). One ensemble
-sharded over distinct devices, and a mesh that spans processes, raise
-:class:`NotImplementedError` (ROADMAP queue 1, item 15).
+A mesh lies in one of two layouts:
+
+* **One process** holds every shard (L = D), and the shards of one
+  ensemble share one device: ``ParticleMesh([dev] * 8)`` is a virtual
+  mesh of 8 shards on ``dev``, the counterpart of the JAX package's
+  ``--xla_force_host_platform_device_count``. The collectives are local
+  arithmetic on the stacked view (``psum`` a loop of adds in mesh order,
+  ``all_gather`` the identity, ``ppermute`` a roll). Sharding is a layout
+  here: the engine's arithmetic is the unsharded one's, and only
+  :class:`~qinfer_tpu_torch.parallel.resample.DistributedLiuWestResampler`
+  changes the algorithm, where the caller asks for it. A mesh over
+  distinct devices serves trials (``perf_test_scan_batch``); one ensemble
+  sharded over distinct devices of one process raises
+  :class:`NotImplementedError`.
+* **Across processes**, one shard a rank of a ``torch.distributed``
+  process group (L = 1), the shard on the rank's device: after
+  :func:`initialize_multihost`, ``ParticleMesh()`` spans the world, as the
+  JAX package's does after ``jax.distributed.initialize``; or
+  :meth:`ParticleMesh.from_process_group`. Each rank holds its own block,
+  the engine reduces per-shard partials through the mesh
+  (:class:`Reducer`), and the collectives go over the group: ``psum`` an
+  ``all_gather`` summed in mesh order on every rank (so every rank holds
+  the same bits, and they are the one-process mesh's), ``ppermute`` a
+  ``batch_isend_irecv`` pair. Under gloo a CUDA tensor is staged through
+  host memory by one copy out and one back (:meth:`ParticleMesh._out`,
+  :meth:`ParticleMesh._in`): gloo sends no CUDA tensor. That staging is
+  the gloo route, chosen by the backend; under NCCL nothing is staged.
+  The NCCL route is unverified: no machine this port was measured on has
+  two cards, and NCCL refuses two ranks on one card.
+  ``collective_seconds`` and ``collective_calls`` count the wall time and
+  number of the group's collectives, staging included.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 
 import torch
+import torch.distributed as dist
 
 from ..config import DEFAULT_DEVICE, resolve_device
 
-__all__ = ["ParticleMesh", "MeshSharding", "make_particle_sharding",
-           "initialize_multihost", "placement", "shard_state"]
-
-#: where the work that is not ported yet waits
-_LATER = "ROADMAP queue 1, item 15"
-
+__all__ = ["ParticleMesh", "MeshSharding", "Reducer", "LOCAL",
+           "make_particle_sharding", "initialize_multihost", "placement",
+           "reducer_of", "shard_state"]
 
 def _normalized(device):
     """``resolve_device(device)`` with a CUDA device's index filled in."""
@@ -58,7 +79,7 @@ class MeshSharding:
 
     @property
     def device(self):
-        """The device every shard lives on."""
+        """The device of this process's shards."""
         return self.mesh.device
 
     @property
@@ -66,24 +87,36 @@ class MeshSharding:
         return self.spec == (self.mesh.axis_name,)
 
     def place(self, tensor):
-        """``tensor`` on the mesh's device, its sharded axis checked to
-        divide into equal blocks."""
+        """A tensor of the whole ensemble laid out on the mesh: on this
+        process's device, its sharded axis checked to divide into D equal
+        blocks (``ValueError`` otherwise); on a mesh across processes, the
+        rank's own block of it."""
         if self.spec and self.spec[0] is not None:
             self.mesh.check_divides(tensor.shape[0])
+            if self.mesh.spans_processes:
+                k = tensor.shape[0] // self.mesh.n_devices
+                r = self.mesh.rank
+                return tensor[r * k:(r + 1) * k].to(self.device).clone()
         return tensor.to(self.device)
 
 
 class ParticleMesh:
-    """A 1-D mesh of shards over torch devices.
+    """A 1-D mesh of shards.
 
-    :param devices: the shards' devices, in mesh order (default: every
-        CUDA device; raises without one, as the entry points do). A device
-        may repeat: ``[dev] * 8`` is 8 shards on one device.
+    :param devices: the shards' devices, in mesh order, all held by this
+        process. A device may repeat: ``[dev] * 8`` is 8 shards on one
+        device. ``None``: the world of the process group when one is up
+        (one shard a rank, see :func:`initialize_multihost`), else every
+        CUDA device (raising without one, as the entry points do).
     :param str axis_name: the mesh axis (``'particles'``; ``'trials'`` for
         a trial mesh).
     """
 
     def __init__(self, devices=None, axis_name="particles"):
+        if devices is None and dist.is_available() and dist.is_initialized():
+            self._join(DEFAULT_DEVICE, axis_name)
+            return
+        self._start(axis_name, spans_processes=False)
         if devices is None:
             resolve_device(DEFAULT_DEVICE)
             devices = [torch.device("cuda", i)
@@ -91,27 +124,72 @@ class ParticleMesh:
         self.devices = tuple(_normalized(d) for d in devices)
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
+        self._size = len(self.devices)
+        self.rank = 0
+        self._staged = False
+
+    @classmethod
+    def from_process_group(cls, device=None, axis_name="particles"):
+        """The mesh of the world's process group, one shard a rank, this
+        rank's on ``device`` (default: the card)."""
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError("no process group: call initialize_multihost "
+                               "first")
+        mesh = cls.__new__(cls)
+        mesh._join(DEFAULT_DEVICE if device is None else device, axis_name)
+        return mesh
+
+    def _start(self, axis_name, spans_processes):
         self.axis_name = str(axis_name)
+        self.spans_processes = spans_processes
+        self.collective_seconds = 0.0
+        self.collective_calls = 0
+
+    def _join(self, device, axis_name):
+        """Span the world's process group, this rank's shard on
+        ``device``."""
+        self._start(axis_name, spans_processes=True)
+        self.devices = (_normalized(device),)
+        self._size = dist.get_world_size()
+        self.rank = dist.get_rank()
+        self.backend = dist.get_backend()
+        # gloo sends no CUDA tensor: stage through host memory
+        self._staged = (self.backend == "gloo"
+                        and self.devices[0].type == "cuda")
 
     @property
     def n_devices(self):
         """D, the number of shards."""
-        return len(self.devices)
+        return self._size
+
+    @property
+    def local_shards(self):
+        """L, the shards this process holds: D in one process, 1 on a
+        rank."""
+        return 1 if self.spans_processes else self._size
+
+    @property
+    def shard_indices(self):
+        """The indices of this process's shards on the mesh axis (host
+        ints)."""
+        return [self.rank] if self.spans_processes else list(range(self._size))
 
     @property
     def device(self):
-        """The one device that holds every shard of a sharded tensor."""
+        """The one device that holds this process's shards of an
+        ensemble."""
         first = self.devices[0]
         if any(d != first for d in self.devices):
             raise NotImplementedError(
-                f"sharding one ensemble over distinct devices "
+                f"one ensemble sharded over distinct devices of one process "
                 f"({', '.join(sorted({str(d) for d in self.devices}))}) is "
-                f"not ported yet ({_LATER}); a mesh over distinct devices "
-                f"runs trials (perf_test_scan_batch)")
+                f"not supported: span processes instead, one shard a rank "
+                f"(initialize_multihost); a mesh over distinct devices runs "
+                f"trials (perf_test_scan_batch)")
         return first
 
     def _sharding(self, spec):
-        self.device  # one ensemble's shards share one device
+        self.device  # one ensemble's local shards share one device
         return MeshSharding(self, spec)
 
     @property
@@ -153,43 +231,139 @@ class ParticleMesh:
     # -- collectives over the shard axis ------------------------------------
 
     def shard(self, tensor):
-        """The shard-stacked view ``(D, n/D, ...)`` of a tensor whose first
-        axis is sharded over the mesh."""
-        self.check_divides(tensor.shape[0])
-        return tensor.reshape((self.n_devices, -1) + tuple(tensor.shape[1:]))
+        """The local stacked view ``(L, n/D, ...)`` of this process's part
+        of a tensor whose first axis is sharded over the mesh."""
+        if tensor.shape[0] % self.local_shards:
+            self.check_divides(tensor.shape[0])
+        return tensor.reshape((self.local_shards, -1)
+                              + tuple(tensor.shape[1:]))
 
     @staticmethod
     def unshard(stacked):
-        """Inverse of :meth:`shard`: ``(n, ...)``."""
+        """Inverse of :meth:`shard`: ``(L·n/D, ...)``."""
         return stacked.reshape((-1,) + tuple(stacked.shape[2:]))
 
+    @contextlib.contextmanager
+    def _collective(self):
+        """Count one collective of the group and its wall time (staging
+        included; the card's queued work is waited for first, so it is
+        not counted)."""
+        if self._staged:
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.collective_seconds += time.perf_counter() - t0
+            self.collective_calls += 1
+
+    def _out(self, tensor):
+        """A block as the group's backend sends it: staged to host memory
+        under gloo for a CUDA tensor, else as it is."""
+        tensor = tensor.contiguous()
+        return tensor.cpu() if self._staged else tensor
+
+    def _in(self, tensor):
+        """A received block back on this rank's device."""
+        return tensor.to(self.device) if self._staged else tensor
+
+    def all_gather(self, stacked):
+        """Every shard's value, stacked in mesh order along the shard
+        axis: ``(L, ...)`` → ``(D, ...)`` (what every shard receives)."""
+        if not self.spans_processes:
+            return stacked
+        with self._collective():
+            local = self._out(stacked[0])
+            parts = [torch.empty_like(local) for _ in range(self._size)]
+            dist.all_gather(parts, local)
+            return self._in(torch.stack(parts))
+
     def psum(self, stacked):
-        """Sum over the shards, in mesh order: ``(D, ...)`` → ``(...)``."""
-        total = stacked[0]
-        for s in range(1, self.n_devices):
-            total = total + stacked[s]
+        """Sum over every shard, in mesh order: ``(L, ...)`` → ``(...)``,
+        the same bits on every rank and in one process."""
+        every = self.all_gather(stacked)
+        total = every[0]
+        for s in range(1, self._size):
+            total = total + every[s]
         return total
 
-    @staticmethod
-    def all_gather(stacked):
-        """Every shard's value, stacked along the shard axis: ``(D, ...)``
-        (what every shard receives)."""
-        return stacked
+    def pmax(self, stacked):
+        """Elementwise maximum over every shard: ``(L, ...)`` → ``(...)``."""
+        return torch.amax(self.all_gather(stacked), dim=0)
 
     def ppermute(self, stacked, shift):
-        """Shard ``s`` sends its block to shard ``(s + shift) mod D``: the
-        stacked view rolled by ``shift`` along the shard axis."""
-        return torch.roll(stacked, shift % self.n_devices, dims=0)
+        """Shard ``s`` sends its block to shard ``(s + shift) mod D`` and
+        receives the block of shard ``(s − shift) mod D``: ``(L, ...)`` →
+        ``(L, ...)``; in one process, the stacked view rolled by ``shift``
+        along the shard axis."""
+        shift %= self._size
+        if not self.spans_processes:
+            return torch.roll(stacked, shift, dims=0)
+        if shift == 0:
+            return stacked
+        with self._collective():
+            send = self._out(stacked[0])
+            recv = torch.empty_like(send)
+            D, r = self._size, self.rank
+            ops = [dist.P2POp(dist.isend, send, (r + shift) % D),
+                   dist.P2POp(dist.irecv, recv, (r - shift) % D)]
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+            return self._in(recv)[None]
 
     def axis_index(self, device=None):
-        """Each shard's index on the mesh axis, ``arange(D)``."""
-        return torch.arange(self.n_devices,
-                            device=device if device is not None
-                            else self.device)
+        """The local shards' indices on the mesh axis: ``arange(D)`` in one
+        process, ``[rank]`` on a rank."""
+        device = device if device is not None else self.device
+        if self.spans_processes:
+            return torch.full((1,), self.rank, dtype=torch.int64,
+                              device=device)
+        return torch.arange(self._size, device=device)
 
     def __repr__(self):
-        return (f"<ParticleMesh {self.n_devices} devices "
+        where = (f" ranks, rank {self.rank}, {self.backend}"
+                 if self.spans_processes else " devices")
+        return (f"<ParticleMesh {self.n_devices}{where} "
                 f"axis={self.axis_name!r}>")
+
+
+class Reducer:
+    """The engine's reductions over the particle axis, from this process's
+    partials. Unsharded, and on a mesh held by one process, a partial is
+    already the whole (the plain ``torch.sum`` / ``torch.max`` over the
+    whole tensor, to the bit): the reducer returns it as it is. On a mesh
+    across processes it is the rank's partial, reduced over the ranks by
+    the mesh's ``psum`` or ``pmax``.
+
+    ``n_shards`` scales a local particle count to the ensemble's."""
+
+    def __init__(self, mesh=None):
+        self.mesh = mesh
+        self.n_shards = 1 if mesh is None else mesh.n_devices
+
+    def sum(self, partial):
+        return partial if self.mesh is None else self.mesh.psum(partial[None])
+
+    def max(self, partial):
+        return partial if self.mesh is None else self.mesh.pmax(partial[None])
+
+    def all(self, flags):
+        """Whether every flag of every shard is set (a host bool)."""
+        if self.mesh is None:
+            return bool(flags.all())
+        return not bool(self.sum((~flags).sum().to(torch.int32)))
+
+
+#: the reducer of an unsharded ensemble, or of a mesh in one process
+LOCAL = Reducer()
+
+
+def reducer_of(sharding):
+    """The :class:`Reducer` of an ensemble laid out by ``sharding``
+    (``None`` or a :class:`MeshSharding`)."""
+    if sharding is not None and sharding.mesh.spans_processes:
+        return Reducer(sharding.mesh)
+    return LOCAL
 
 
 def make_particle_sharding(devices=None, axis_name="particles"):
@@ -219,24 +393,56 @@ def placement(device, sharding):
 
 
 def shard_state(state, sharding):
-    """An engine state (``weights`` and ``locations`` fields) laid out by a
-    particle ``sharding``: both on the mesh's device, their particle axis
-    checked to split into the mesh's equal shards (``ValueError``
-    otherwise)."""
+    """An engine state of the whole ensemble (``weights`` and
+    ``locations`` fields) laid out by a particle ``sharding``
+    (:meth:`MeshSharding.place`: on the mesh's device, its particle axis
+    checked to split into the mesh's equal shards, ``ValueError``
+    otherwise; the rank's own rows on a mesh across processes)."""
     return dataclasses.replace(state, weights=sharding.place(state.weights),
                                locations=sharding.place(state.locations))
 
 
 def initialize_multihost(coordinator_address=None, num_processes=None,
-                         process_id=None):
-    """Join a mesh that spans processes. Without a coordinator (one
-    process) there is nothing to do and it returns, as the JAX package's
-    does for a single host; with one it raises
-    :class:`NotImplementedError` (no stand-in pretends to span
-    processes)."""
+                         process_id=None, backend="gloo"):
+    """Join a mesh that spans processes (the ipyparallel controller's
+    replacement): ``torch.distributed.init_process_group`` over
+    ``num_processes`` ranks, this process rank ``process_id``, with the
+    rendezvous at ``coordinator_address`` (``host:port``, read as
+    ``tcp://host:port``, or a ``tcp://`` or ``file://`` URL; ``None``
+    reads the ``env://`` variables). Afterwards ``ParticleMesh()`` spans
+    the world, one shard a rank, this rank's on the card;
+    :meth:`ParticleMesh.from_process_group` names another device (a CPU
+    rank's).
+
+    Without a coordinator and for one process there is nothing to do and
+    it returns, as the JAX package's does for a single host. A second call
+    on a group that is up returns when it names the group's size and this
+    rank, and raises ``ValueError`` when it does not. Any other failure
+    (an unreachable coordinator, a rank outside the world) propagates:
+    a wrong configuration never becomes a run in one process.
+
+    :param str backend: ``'gloo'`` (the CPU, and a card through host
+        memory) or ``'nccl'`` (cards only; unverified, see the module).
+    """
     if coordinator_address is None and num_processes in (None, 1):
         return
-    raise NotImplementedError(
-        f"a mesh that spans processes is not ported yet ({_LATER}): "
-        f"coordinator {coordinator_address!r}, {num_processes} processes, "
-        f"process {process_id}")
+    if backend not in ("gloo", "nccl"):
+        raise ValueError(f"backend must be 'gloo' or 'nccl', not "
+                         f"{backend!r}")
+    if dist.is_initialized():
+        size, rank = dist.get_world_size(), dist.get_rank()
+        if ((num_processes is not None and num_processes != size)
+                or (process_id is not None and process_id != rank)):
+            raise ValueError(
+                f"a process group of {size} ranks is up, this process rank "
+                f"{rank}: not {num_processes} processes, process "
+                f"{process_id}")
+        return
+    url = coordinator_address
+    if url is not None and "://" not in url:
+        url = f"tcp://{url}"
+    dist.init_process_group(backend=backend, init_method=url,
+                            world_size=-1 if num_processes is None
+                            else int(num_processes),
+                            rank=-1 if process_id is None
+                            else int(process_id))

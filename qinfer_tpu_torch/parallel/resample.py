@@ -12,21 +12,29 @@ the particle filter"):
    butterfly of 3·log₂D rounds (:func:`butterfly_exchange_schedule`).
    Both deliver block ``A_s`` to shard ``s`` exactly, so both give the
    same bits.
-2. *Local level*: each shard draws its own uniform (``u₂``, (D,)) and
-   counts its n/D slots over the received block's weights; the fill of
-   every shard is ONE launch of kernel K3 over all D·n/D rows
+2. *Local level*: each shard draws its own uniform ``u₂[s]`` and counts
+   its n/D slots over the received block's weights; the fill of the
+   shards a process holds is ONE launch of kernel K3 over their rows
    (:func:`~qinfer_tpu_torch.resamplers.counting_locations_batch_from_u`:
-   shard s's offsets shifted by s·n/D).
+   shard s's offsets shifted by its row), so one launch over all D·n/D
+   rows in one process, and over the rank's n/D rows on a mesh across
+   processes.
 
 Copy count of particle i of shard d: ``E[#shards with A = d] · (n/D) ·
 w_i / W_d = n·w_i``, unbiased, with uniform output weights and n/D
 particles on every shard. The Liu-West kernel then shrinks the ancestors
 toward the GLOBAL mean, with the global covariance, both summed from
 per-shard partials by ``psum``.
+
+The code is written once over the mesh's local stacked view ``(L, n/D,
+...)`` (:meth:`~qinfer_tpu_torch.parallel.ParticleMesh.shard`), so a
+mesh in one process (L = D) and a mesh across processes (L = 1, one
+shard a rank) run the same lines.
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
 
 import torch
@@ -35,10 +43,11 @@ from ..config import EPS
 from ..resamplers import (Resampler, counting_locations_batch_from_u,
                           propose_valid, shrinkage_factor)
 from ..utils import cumsum_last
+from .mesh import reducer_of
 
 __all__ = ["DistributedLiuWestResampler", "shard_systematic_ancestors",
            "butterfly_exchange_schedule", "exchange_blocks",
-           "two_level_fill"]
+           "shard_generators", "two_level_fill"]
 
 
 def shard_systematic_ancestors(u, shard_masses):
@@ -132,36 +141,58 @@ def butterfly_exchange_schedule(anc_shard, n_dev):
 
 
 def exchange_blocks(mesh, u1, w, x, exchange="ring"):
-    """Level 1 on shard-stacked ``w`` (D, n/D) and ``x`` (D, n/D, d): the
-    ancestor shards at offset ``u1`` and the block exchange by the mesh's
-    ``ppermute`` (``'ring'``: D − 1 rounds, each shard taking the block
+    """Level 1 on the local stacked ``w`` (L, n/D) and ``x`` (L, n/D, d):
+    the ancestor shards at offset ``u1`` from the all-gathered shard
+    masses (the same on every shard) and the block exchange by the mesh's
+    ``ppermute`` (``'ring'``: D − 1 rounds, each shard keeping the block
     that comes from its ancestor; ``'butterfly'``:
     :func:`butterfly_exchange_schedule`, the weights riding as one more
-    column). Returns the received ``(w, x)``, block ``A_s`` on shard s."""
+    column, each shard applying its own row of ``takes``). Returns the
+    received ``(w, x)``, block ``A_s`` on shard s."""
     D = mesh.n_devices
     anc = shard_systematic_ancestors(u1, mesh.all_gather(w.sum(dim=1)))
+    idx = mesh.axis_index(w.device)
     if exchange == "butterfly":
         shifts, takes = butterfly_exchange_schedule(anc, D)
+        takes = takes[:, idx]
         buf = torch.cat([x, w[..., None]], dim=-1)
         for k, shift in enumerate(shifts):
             buf = torch.where(takes[k][:, None, None],
                               mesh.ppermute(buf, shift), buf)
         return buf[..., -1].contiguous(), buf[..., :-1].contiguous()
-    idx = mesh.axis_index(w.device)
+    my_anc = anc[idx]
     recv_w, recv_x = w, x
     for k in range(1, D):
-        take = anc == (idx - k) % D
+        take = my_anc == (idx - k) % D
         recv_w = torch.where(take[:, None], mesh.ppermute(w, k), recv_w)
         recv_x = torch.where(take[:, None, None], mesh.ppermute(x, k),
                              recv_x)
     return recv_w, recv_x
 
 
+def shard_generators(generator, mesh, device):
+    """One generator for each of this process's shards: shard s's is
+    seeded from ``generator``'s state (the same on every shard: it draws
+    only replicated values) and s, as the JAX package folds the shard
+    index into its key, so shard s draws the same values whichever
+    process holds it. Reading the state copies nothing from the card."""
+    state = generator.get_state().numpy().tobytes()
+    gens = []
+    for s in mesh.shard_indices:
+        word = hashlib.blake2b(state + s.to_bytes(8, "little"),
+                               digest_size=8).digest()
+        g = torch.Generator(device=device)
+        g.manual_seed(int.from_bytes(word, "little") >> 1)
+        gens.append(g)
+    return gens
+
+
 def two_level_fill(mesh, u1, u2, w, x, exchange="ring"):
-    """The two-level systematic fill of shard-stacked ``w`` (D, n/D) and
-    ``x`` (D, n/D, d): the block exchange at ``u1``
-    (:func:`exchange_blocks`), then each shard's counting fill at its own
-    ``u2[s]``, ONE K3 launch over every shard's rows. (D, n/D, d)."""
+    """The two-level systematic fill of the local stacked ``w`` (L, n/D)
+    and ``x`` (L, n/D, d): the block exchange at ``u1``
+    (:func:`exchange_blocks`), then each local shard's counting fill at
+    its own ``u2[s]`` ((L,)), ONE K3 launch over the local shards' rows.
+    (L, n/D, d)."""
     recv_w, recv_x = exchange_blocks(mesh, u1, w, x, exchange)
     return counting_locations_batch_from_u(u2, recv_w, recv_x)[0]
 
@@ -172,11 +203,15 @@ class DistributedLiuWestResampler(Resampler):
     on an ensemble sharded over ``mesh``, with only the mesh's collectives
     between shards.
 
-    Draws, in order, from ``generator``: ``u₁`` (one, for every shard),
-    ``u₂`` (one a shard), the proposals and each validity round's fresh
-    proposals (the JAX package folds the shard index into its key; the
-    laws agree, the streams do not). The validity rounds run until every
-    shard's slots are valid or ``maxiter`` rounds have passed; the
+    Draws ``u₁`` (one, for every shard) from ``generator``, which must
+    give the same values on every rank; then each shard draws ``u₂[s]``,
+    its proposals and each validity round's fresh proposals from its own
+    generator (:func:`shard_generators`), so a mesh across processes sees
+    the draws of a one-process mesh of the same D (the JAX package folds
+    the shard index into its key; the laws agree, the streams do not).
+    The validity rounds run until every shard's slots are valid (on a mesh
+    across processes, an all-reduce of the ranks' verdicts, so every rank
+    runs the same rounds) or ``maxiter`` rounds have passed; the
     canonicalization always runs, and the output weights are 1/n.
 
     :param mesh: the :class:`~qinfer_tpu_torch.parallel.ParticleMesh`.
@@ -218,28 +253,35 @@ class DistributedLiuWestResampler(Resampler):
         self.exchange = exchange
 
     def fill_inputs(self, generator, particle_weights, particle_locations):
-        """What a call's fill starts from: its offsets ``u1`` (0-d) and
-        ``u2`` (D,), the first draws, and the shard-stacked weights,
-        normalized by their global total (``psum`` of the shards' sums),
-        and locations."""
+        """What a call's fill starts from: ``(u1, u2, w, x, generators)``,
+        the offset ``u1`` (0-d) drawn from ``generator`` (the first and
+        only draw from it), the shard generators
+        (:func:`shard_generators`), each shard's offset ``u2[s]`` (L,), its
+        generator's first draw, and the local stacked weights, normalized
+        by their global total (``psum`` of the shards' sums), and
+        locations."""
         mesh = self.mesh
         dev = particle_locations.device
         u1 = torch.rand((), generator=generator, device=dev)
-        u2 = torch.rand((mesh.n_devices,), generator=generator, device=dev)
+        gens = shard_generators(generator, mesh, dev)
+        u2 = torch.stack([torch.rand((), generator=g, device=dev)
+                          for g in gens])
         w = mesh.shard(particle_weights)
         x = mesh.shard(particle_locations.contiguous())
-        return u1, u2, w / torch.clamp_min(mesh.psum(w.sum(dim=1)), EPS), x
+        return (u1, u2, w / torch.clamp_min(mesh.psum(w.sum(dim=1)), EPS), x,
+                gens)
 
     def call_with_diagnostics(self, model, generator, particle_weights,
                               particle_locations):
-        """:return: ``(weights (n,), locations (n, d), n_fallback)``,
-        ``n_fallback`` a 0-d int32 tensor counting the slots (of every
-        shard) that kept their ancestor."""
+        """:return: ``(weights, locations, n_fallback)``: this process's
+        rows of the new ensemble, and ``n_fallback``, a 0-d int32 tensor
+        counting the slots of every shard that kept their ancestor (the
+        same on every rank)."""
         mesh = self.mesh
-        n, d = particle_locations.shape
+        d = particle_locations.shape[1]
         dev = particle_locations.device
-        u1, u2, w, x = self.fill_inputs(generator, particle_weights,
-                                        particle_locations)
+        u1, u2, w, x, gens = self.fill_inputs(generator, particle_weights,
+                                              particle_locations)
         # global moments from per-shard partials
         mu = mesh.psum(torch.bmm(w[:, None, :], x)[:, 0, :])
         xc = x - mu
@@ -250,9 +292,11 @@ class DistributedLiuWestResampler(Resampler):
 
         x_anc = two_level_fill(mesh, u1, u2, w, x, self.exchange)
         centers = self.a * x_anc + (1.0 - self.a) * mu
-        new_x, n_fallback, _ = propose_valid(model, generator, centers, S_T,
-                                             x_anc, self.maxiter)
+        new_x, n_fallback, _ = propose_valid(
+            model, gens, centers, S_T, x_anc, self.maxiter,
+            all_valid=reducer_of(mesh.particle_sharding).all)
         new_x = model.canonicalize(mesh.unshard(new_x))
-        new_w = torch.full((n,), 1.0 / n, dtype=particle_weights.dtype,
-                           device=dev)
-        return new_w, new_x, n_fallback.sum().to(torch.int32)
+        n = mesh.n_devices * x.shape[1]
+        new_w = torch.full((new_x.shape[0],), 1.0 / n,
+                           dtype=particle_weights.dtype, device=dev)
+        return new_w, new_x, mesh.psum(n_fallback).to(torch.int32)

@@ -1,0 +1,407 @@
+"""One rank of a particle mesh across processes (the port's counterpart of
+the JAX package's ``tests/_multiprocess_worker.py``).
+
+Start one process a rank, all with the same arguments but ``--rank``::
+
+    python -m qinfer_tpu_torch.parallel.worker --rank R --world W \\
+        --init-method file:///tmp/store --tasks jax,precession [--cpu]
+
+The ranks join a gloo process group (:func:`initialize_multihost`; the
+``--init-method`` is a ``tcp://host:port`` or ``file://`` rendezvous),
+build ``ParticleMesh()`` over the world, one shard a rank, and run the
+tasks in order, each printing one line ``RESULT {json}`` (a task that
+runs twice, as ``precession`` does by the ring and by the butterfly,
+prints two). Every number in a line is the same on every rank unless its
+key says ``local``. The ranks run on the card (``cuda:0``; two ranks
+share it, each collective staged through host memory) and refuse to run
+without one unless ``--cpu`` asks for the CPU.
+
+Tasks:
+
+* ``jax``: the JAX worker's computation: a uniform prior ensemble of
+  4096 particles from ``numpy.random.default_rng(0)``, one
+  update of ``SimplePrecessionModel`` at t = 4.3 with outcome 1 (the ESS
+  gate off), one forced ``DistributedLiuWestResampler(exchange='ring')``
+  resample from a generator seeded 2, and the posterior moments.
+* ``exchange``: the block exchange and the two-level fill, by the ring
+  and by the butterfly, of a NumPy ensemble (``--particles`` x 2, seed
+  ``--seed``) at fixed offsets, and one update of that ensemble; the
+  rank's own blocks (``local_*``).
+* ``precession``: ``perf_test_scan`` with ``AcceleratedPrecessionModel``
+  (kernels K1 and K2 a step, K3 a resample), ``--particles`` in all x
+  ``--steps``, truth ω = 0.7, seed ``--seed``, and
+  ``DistributedLiuWestResampler`` by the ring and then by the butterfly
+  (one line each), after a warm-up run of 8 steps; each run's wall,
+  particle-updates/s, kernel launches on this rank and the wall of the
+  mesh's collectives (host staging included). With ``--record DIR``,
+  each rank then writes ``DIR/rank{R}.pt``: the inputs of the ring run's
+  last K1 call (ω, w, t, outcome), those of its first resample (the
+  generator's state, the rank's weights and particles) and that
+  resample's fill, replayed from them (u₂, the received blocks, and K3's
+  counts, first slots and output), for a caller to hold the kernels
+  against their plain versions at the rank's shapes and the resample
+  against a run in one process.
+* ``config5``: ``expdesign_bench.run_bench`` (BASELINE config 5) at
+  ``--config5 N,STEPS,CANDIDATES`` on the mesh, with its per-step
+  record.
+* ``collectives``: the mesh's four collectives on a fixed input,
+  ``initialize_multihost`` called again, ``ParticleMesh()`` (the world on
+  the card: it refuses the CPU), an ``SMCUpdater`` of 10 particles
+  a rank (seed 0) after one update of ``SimplePrecessionModel`` at t =
+  4.3 with outcome 1: its estimators, design scores, a PGH proposal and
+  five draws; and the refusals (a particle count the world does not
+  divide; a checkpoint).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from ..config import resolve_device
+from .mesh import ParticleMesh, initialize_multihost, reducer_of, shard_state
+
+TASKS = ("jax", "exchange", "precession", "config5", "collectives")
+
+
+def _counted():
+    """Every kernel wrapper, by kernel name (each counts its launches)."""
+    from ..ops import jacobi as jac
+    from ..ops import precession as prec
+    from ..ops import streaming_resample as sr
+
+    return {"fused_precession_update": prec.fused_precession_update,
+            "precession_pr0": prec.precession_pr0,
+            "streaming_resample_locations": sr.streaming_resample_locations,
+            "jacobi_project_lanes": jac.jacobi_project_lanes,
+            "jacobi_project_lanes_looped": jac.jacobi_project_lanes_looped,
+            "jacobi_eigh_lanes": jac.jacobi_eigh_lanes}
+
+
+def _zero_counts():
+    for fn in _counted().values():
+        fn.launches = 0
+
+
+def _counts():
+    return {name: fn.launches for name, fn in _counted().items()}
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _prior_state(mesh, n, seed, d=1):
+    """A uniform prior ensemble of ``n`` rows from a NumPy seed, with
+    uniform weights, laid out on the mesh (the rank's rows)."""
+    from ..smc import SMCState
+
+    x = np.random.default_rng(seed).uniform(size=(n, d)).astype(np.float32)
+    return shard_state(SMCState.initial(torch.from_numpy(x)),
+                       mesh.particle_sharding)
+
+
+def _one_update(mesh, state):
+    """``SimplePrecessionModel``'s update at t = 4.3, outcome 1, the ESS
+    gate off: ``(state, log_norm)``."""
+    from ..resamplers import LiuWestResampler
+    from ..smc import _update_step
+    from ..test_models import SimplePrecessionModel
+
+    dev = mesh.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    state, log_norm, _ = _update_step(
+        SimplePrecessionModel(), LiuWestResampler(a=0.98), state,
+        torch.ones((1,), dtype=torch.int32, device=dev),
+        {"t": torch.full((1,), 4.3, device=dev)}, 0.0, 1e-10, g,
+        reducer=reducer_of(mesh.particle_sharding))
+    return state, log_norm
+
+
+def task_jax(mesh, args):
+    from ..test_models import SimplePrecessionModel
+    from .resample import DistributedLiuWestResampler
+
+    red = reducer_of(mesh.particle_sharding)
+    n = 4096
+    state, log_norm = _one_update(mesh, _prior_state(mesh, n, 0))
+    post_mean = red.sum(state.weights @ state.locations)
+    g = torch.Generator(device=mesh.device)
+    g.manual_seed(2)
+    rs = DistributedLiuWestResampler(mesh, a=0.98, exchange="ring")
+    w2, x2 = rs(SimplePrecessionModel(), g, state.weights, state.locations)
+    mu = red.sum(w2 @ x2)
+    xc = x2 - mu[None, :]
+    cov = red.sum((xc * w2[:, None]).T @ xc)
+    yield {"log_norm": log_norm, "post_update_mean": post_mean.tolist(),
+           "mean": mu.tolist(), "cov": cov.tolist(),
+           "weights_uniform": red.all(torch.abs(w2 - 1.0 / n) <= 1e-9),
+           "local_rows": int(w2.shape[0])}
+
+
+def task_exchange(mesh, args):
+    from .resample import exchange_blocks, two_level_fill
+
+    n, D = args.particles, mesh.n_devices
+    rng = np.random.default_rng(args.seed)
+    x = rng.normal(size=(n, 2)).astype(np.float32)
+    w = (np.exp(-((np.arange(n) - n / 5) / (n / 5)) ** 2)
+         * rng.random(n)).astype(np.float32)
+    w /= w.sum()
+    u1 = torch.tensor(np.float32(0.37), device=mesh.device)
+    u2 = torch.from_numpy(rng.uniform(0.0, 0.9, size=D).astype(np.float32))
+    u2 = u2[mesh.rank:mesh.rank + 1].to(mesh.device)
+    sharding = mesh.particle_sharding
+    wv = mesh.shard(sharding.place(torch.from_numpy(w)))
+    xv = mesh.shard(sharding.place(torch.from_numpy(x)))
+    out = {}
+    for exchange in ("ring", "butterfly"):
+        recv_w, recv_x = exchange_blocks(mesh, u1, wv, xv, exchange)
+        fill = two_level_fill(mesh, u1, u2, wv, xv, exchange)
+        out[exchange] = {"local_w": recv_w[0].tolist(),
+                         "local_x": recv_x[0].tolist(),
+                         "local_fill": fill[0].tolist()}
+    state, log_norm = _one_update(mesh, _prior_state(mesh, n, args.seed))
+    out["update"] = {"log_norm": log_norm,
+                     "local_weights": state.weights.tolist()}
+    yield out
+
+
+def _recorders(mesh, steps, exchange):
+    """An ``AcceleratedPrecessionModel`` that keeps the inputs of its K1
+    call at the last of ``steps`` steps, and a
+    ``DistributedLiuWestResampler(a=0.98)`` that keeps those of its first
+    call: the generator's state, the weights and the particles."""
+    from ..ops.accelerated import AcceleratedPrecessionModel
+    from .resample import DistributedLiuWestResampler
+
+    class Model(AcceleratedPrecessionModel):
+        calls, last = 0, None
+
+        def fused_reweight(self, weights, locations, outcome, expparams):
+            self.calls += 1
+            if self.calls == steps:
+                self.last = (locations[:, 0].clone(), weights.clone(),
+                             float(expparams["t"].reshape(-1)[0]),
+                             int(outcome.reshape(-1)[0]))
+            return super().fused_reweight(weights, locations, outcome,
+                                          expparams)
+
+    class Resampler(DistributedLiuWestResampler):
+        first = None
+
+        def call_with_diagnostics(self, model, generator, w, x):
+            if self.first is None:
+                self.first = (generator.get_state(), w.clone(), x.clone())
+            return super().call_with_diagnostics(model, generator, w, x)
+
+    return Model(), Resampler(mesh, a=0.98, exchange=exchange)
+
+
+def _record_kernel_inputs(mesh, model, rs, path):
+    """Write the kept K1 inputs and the replayed first fill (the block
+    exchange again from the kept generator state, then the fill's one K3
+    launch) to ``path``, on the host."""
+    from ..resamplers import counting_locations_batch_from_u
+    from .resample import exchange_blocks
+
+    gen_state, w, x = rs.first
+    g = torch.Generator(device=mesh.device)
+    g.set_state(gen_state)
+    u1, u2, wv, xv, _ = rs.fill_inputs(g, w, x)
+    recv_w, recv_x = exchange_blocks(mesh, u1, wv, xv, rs.exchange)
+    x_anc, m, starts = counting_locations_batch_from_u(u2, recv_w, recv_x)
+    omega, k1_w, t, outcome = model.last
+    torch.save({"k1": (omega.cpu(), k1_w.cpu(), t, outcome),
+                "resample": (gen_state, w.cpu(), x.cpu()),
+                "fill": tuple(v.cpu() for v in (u2, recv_w, recv_x, m,
+                                                starts, x_anc))}, path)
+
+
+def task_precession(mesh, args):
+    from ..distributions import UniformDistribution
+    from ..ops.accelerated import AcceleratedPrecessionModel
+    from ..perf_testing import perf_test_scan
+    from .resample import DistributedLiuWestResampler
+
+    prior = UniformDistribution([[0.0, 1.0]])
+    n, steps, dev = args.particles, args.steps, mesh.device
+
+    def run(model, resampler, n_steps):
+        return perf_test_scan(
+            model, n, prior, n_steps, true_mps=[[0.7]], seed=args.seed,
+            resampler=resampler, sharding=mesh.particle_sharding,
+            device=dev)
+
+    run(AcceleratedPrecessionModel(), DistributedLiuWestResampler(
+        mesh, a=0.98, exchange="ring"), 8)  # warm-up
+    finals = {}
+    for exchange in ("ring", "butterfly"):
+        model, rs = _recorders(mesh, steps, exchange)
+        if exchange == "ring":
+            kept = (model, rs)
+        _zero_counts()
+        mesh.collective_seconds, mesh.collective_calls = 0.0, 0
+        _sync(dev)
+        t0 = time.perf_counter()
+        u, rec = run(model, rs, steps)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        finals[exchange] = u.state
+        est = float(rec["est"][-1, 0])
+        result = {
+            "exchange": exchange, "particles": n, "steps": steps,
+            "local_rows": int(u.particle_weights.shape[0]),
+            "est": est, "resamples": u.resample_count,
+            "log_evidence": float(u.state.log_total_likelihood),
+            "min_n_ess": float(u.state.min_n_ess),
+            "est_record": rec["est"][:, 0].tolist(),
+            "ess_record": rec["ess"].tolist(),
+            "posterior_sd": float(u.est_covariance_mtx()[0, 0]) ** 0.5,
+            "finite": bool(torch.isfinite(u.particle_weights).all()
+                           and torch.isfinite(u.particle_locations).all()),
+            "wall_s": wall, "updates_per_s": n * steps / wall,
+            "local_launches": launches,
+            "local_collective_s": mesh.collective_seconds,
+            "collective_calls": mesh.collective_calls}
+        if exchange == "butterfly":
+            a, b = finals["ring"], finals["butterfly"]
+            result["local_ring_equals_butterfly"] = all(
+                torch.equal(getattr(a, f), getattr(b, f))
+                for f in ("weights", "locations", "log_total_likelihood",
+                          "min_n_ess"))
+        yield result
+    if args.record:
+        _record_kernel_inputs(mesh, *kept,
+                              f"{args.record}/rank{mesh.rank}.pt")
+
+
+def task_config5(mesh, args):
+    from .. import expdesign_bench as eb
+
+    n, steps, cand = args.config5
+    _zero_counts()
+    mesh.collective_seconds, mesh.collective_calls = 0.0, 0
+    r = eb.run_bench(n, steps, cand, 0, mesh.device, mesh=mesh, record=True)
+    state = r.pop("state")
+    r["local_rows"] = int(state.weights.shape[0])
+    r["local_launches"] = _counts()
+    # the warm-up run and the timed run both count
+    r["local_collective_s"] = mesh.collective_seconds
+    r["collective_calls"] = mesh.collective_calls
+    yield r
+
+
+def task_collectives(mesh, args):
+    from ..checkpoint import save_updater
+    from ..distributions import UniformDistribution
+    from ..heuristics import PGH
+    from ..smc import SMCUpdater
+    from ..test_models import SimplePrecessionModel
+
+    D, r, dev = mesh.n_devices, mesh.rank, mesh.device
+    # shard s's block: rows [10 s, 10 s + 10) of a fixed (10 D, 2) tensor
+    block = (torch.arange(20, dtype=torch.float32, device=dev).reshape(10, 2)
+             + 100.0 * r)[None]
+    try:
+        implicit = ParticleMesh()
+        implicit = [implicit.n_devices, implicit.rank == r,
+                    str(implicit.device)]
+    except RuntimeError as exc:
+        implicit = str(exc)
+    out = {"n_devices": D, "spans_processes": mesh.spans_processes,
+           "local_implicit_mesh": implicit,
+           "local_axis_index": mesh.axis_index().tolist(),
+           "psum": mesh.psum(block).tolist(),
+           "all_gather": mesh.all_gather(block).tolist(),
+           "local_ppermute": {str(k): mesh.ppermute(block, k)[0].tolist()
+                              for k in range(-1, D + 1)}}
+    initialize_multihost(args.init_method, D, r)  # a second call returns
+    try:
+        initialize_multihost(args.init_method, D + 1, r)
+        out["local_second_call"] = "returned"
+    except ValueError as exc:
+        out["local_second_call"] = str(exc)
+    model, prior = SimplePrecessionModel(), UniformDistribution([[0.0, 1.0]])
+    try:
+        SMCUpdater(model, 10 * D + 1, prior, sharding=mesh.particle_sharding)
+        out["indivisible"] = "accepted"
+    except ValueError as exc:
+        out["indivisible"] = str(exc)
+    u = SMCUpdater(model, 10 * D, prior, sharding=mesh.particle_sharding)
+    out["updater_local_rows"] = int(u.particle_weights.shape[0])
+    u.update(torch.tensor(1), {"t": torch.tensor([4.3])},
+             check_for_resample=False)
+    cand = {"t": torch.tensor([0.5, 1.0, 2.0, 4.0])}
+    out["engine"] = {
+        "mean": u.est_mean().tolist(),
+        "cov": u.est_covariance_mtx().tolist(),
+        "n_ess": u.n_ess, "entropy": float(u.est_entropy()),
+        "log_total_likelihood": u.log_total_likelihood,
+        "eig": u.expected_information_gain(cand).tolist(),
+        "risk": u.bayes_risk(cand).tolist(),
+        "pgh_t": float(PGH(u)()["t"][0]),
+        "sample": u.sample(5).tolist()}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            save_updater(f"{tmp}/checkpoint", u)
+            out["save"] = "saved"
+        except NotImplementedError as exc:
+            out["save"] = str(exc)
+    yield out
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--rank", type=int, required=True)
+    parser.add_argument("--world", type=int, required=True)
+    parser.add_argument("--init-method", required=True,
+                        help="tcp://host:port or file:///path rendezvous")
+    parser.add_argument("--tasks", default="jax",
+                        help=f"comma-separated, from {', '.join(TASKS)}")
+    parser.add_argument("--particles", type=int, default=4096)
+    parser.add_argument("--steps", type=int, default=256)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--config5", default="10000000,32,16",
+                        help="N,STEPS,CANDIDATES of the config5 task")
+    parser.add_argument("--cpu", action="store_true",
+                        help="run on the CPU (default: the card)")
+    parser.add_argument("--record", metavar="DIR",
+                        help="where the precession task writes each rank's "
+                             "kernel inputs")
+    args = parser.parse_args(argv)
+    args.config5 = tuple(int(v) for v in args.config5.split(","))
+    tasks = [t for t in args.tasks.split(",") if t]
+    unknown = set(tasks) - set(TASKS)
+    if unknown:
+        parser.error(f"unknown tasks {sorted(unknown)}")
+    device = resolve_device("cpu" if args.cpu else "cuda")
+    if device.type == "cuda":
+        device = torch.device("cuda", 0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_multihost(args.init_method, args.world, args.rank,
+                         backend="gloo")
+    mesh = ParticleMesh.from_process_group(device)
+    run = {"jax": task_jax, "exchange": task_exchange,
+           "precession": task_precession, "config5": task_config5,
+           "collectives": task_collectives}
+    for task in tasks:
+        for result in run[task](mesh, args):
+            line = {"task": task, "rank": args.rank, "world": args.world,
+                    "device": str(device), **result}
+            print("RESULT " + json.dumps(line), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

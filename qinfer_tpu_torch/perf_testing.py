@@ -39,7 +39,7 @@ from . import rejuvenation as rj
 from .abstract_model import atleast_2d
 from .config import DEFAULT_DEVICE, EPS, resolve_device
 from .heuristics import PGH
-from .parallel.mesh import ParticleMesh, placement
+from .parallel.mesh import LOCAL, ParticleMesh, placement
 from .resamplers import LiuWestResampler
 from .smc import (SMCState, SMCUpdater, _reweight_batch, _simulate_batch,
                   _trial, _update_step, resample_interval_gate)
@@ -176,7 +176,11 @@ def perf_test_scan(model, n_particles, prior, n_exp, heuristic_factory=None,
     (``update_timestep``). The card by default: without a CUDA device,
     pass ``device="cpu"``. With a particle ``sharding``
     (``ParticleMesh.particle_sharding``) the updater's ensemble is sharded
-    over the mesh, on its device (see :class:`SMCUpdater`).
+    over the mesh, on its device (see :class:`SMCUpdater`). On a mesh
+    across processes every rank runs this function with the same
+    arguments; the record (estimates, losses, ESS, evidence) and the
+    resample count are the same on every rank, the final state the rank's
+    block.
 
     :param heuristic_factory: ``f(updater) -> Heuristic`` (PGH by default).
     :return: ``(updater, record)``: the updater with the final state
@@ -201,7 +205,8 @@ def perf_test_scan(model, n_particles, prior, n_exp, heuristic_factory=None,
     st, true, record, log_norms = _scan_steps(
         model, heuristic, updater.resampler, updater.state, true, n_exp,
         generator, updater.generator, updater.resample_thresh,
-        updater.zero_weight_thresh, on_zero=updater._handle_zero_weight)
+        updater.zero_weight_thresh, on_zero=updater._handle_zero_weight,
+        reducer=updater._reducer)
     updater.state = st
     # the step's log-normalization came to the host with its ESS gate
     record["norm"] = torch.exp(torch.tensor(log_norms, dtype=torch.float32,
@@ -212,14 +217,16 @@ def perf_test_scan(model, n_particles, prior, n_exp, heuristic_factory=None,
 
 def _scan_steps(model, heuristic, resampler, st, true, n_exp, g_run,
                 g_update, resample_thresh, zero_weight_thresh,
-                resample_interval=0, on_zero=None, after_update=None):
+                resample_interval=0, on_zero=None, after_update=None,
+                reducer=LOCAL):
     """The one-ensemble loop of :func:`perf_test_scan` and of a mesh trial:
     each step a proposal and an outcome at the truth drawn from ``g_run``
     (the truth then moved, for a time-dependent model), the engine's
     update step drawing from ``g_update`` with the ESS checked where
     ``resample_interval`` allows, ``on_zero()`` when the weights were
     annihilated, ``after_update(state, outcome, eps, idx) -> state``, and
-    the step's loss, ESS and estimate kept on the device. Returns
+    the step's loss, ESS and estimate kept on the device, each summed over
+    the whole ensemble by ``reducer`` (see ``smc._update_step``). Returns
     ``(state, truth, {loss, ess, est}, the steps' log-normalizations)``."""
     Q = model.Q.to(st.weights.device)
     time_dependent = bool(model.is_time_dependent)
@@ -232,15 +239,19 @@ def _scan_steps(model, heuristic, resampler, st, true, n_exp, g_run,
         st, log_norm, was_zero = _update_step(
             model, resampler, st, outcome, eps, resample_thresh,
             zero_weight_thresh, g_update, check_resample=True,
-            resample_gate=resample_interval_gate(idx, resample_interval))
+            resample_gate=resample_interval_gate(idx, resample_interval),
+            reducer=reducer)
         if was_zero and on_zero is not None:
             on_zero()
         if after_update is not None:
             st = after_update(st, outcome, eps, idx)
-        est = st.weights @ st.locations
+        # the estimate and Σw² in one reduction
+        sums = reducer.sum(torch.cat([st.weights @ st.locations, torch.sum(
+            st.weights * st.weights)[None]]))
+        est = sums[:-1]
         delta = est - true[0]
         losses.append(torch.sum(Q * delta * delta))
-        esses.append(1.0 / torch.sum(st.weights * st.weights))
+        esses.append(1.0 / sums[-1])
         ests.append(est)
         log_norms.append(log_norm)
     record = {"loss": torch.stack(losses), "ess": torch.stack(esses),
@@ -513,6 +524,10 @@ def perf_test_scan_batch(model, n_particles, prior, n_exp, n_trials,
                                                         device))
     else:
         if isinstance(mesh, ParticleMesh):
+            if mesh.spans_processes:
+                raise NotImplementedError(
+                    "a trial mesh across processes is not ported (ROADMAP "
+                    "queue 1): give each process its own trials")
             if mesh.axis_name != axis_name:
                 raise ValueError(f"the mesh has axis {mesh.axis_name!r}, "
                                  f"not {axis_name!r}")

@@ -331,7 +331,8 @@ def shrinkage_factor(cov):
     return L
 
 
-def propose_valid(model, generator, centers, S_T, x_anc, maxiter):
+def propose_valid(model, generator, centers, S_T, x_anc, maxiter,
+                  all_valid=None):
     """The Liu-West proposals ``centers + z S_Tᵀ`` (``z`` standard normal
     of ``centers``' shape (..., n, d)) with at most ``maxiter`` validity
     redraw rounds against ``model.are_models_valid``: each round redraws
@@ -340,16 +341,30 @@ def propose_valid(model, generator, centers, S_T, x_anc, maxiter):
     valid (one device→host copy a check). Slots still invalid keep their
     ancestor ``x_anc``.
 
+    :param generator: a :class:`torch.Generator`, or a list of them, one
+        for each leading row of ``centers`` (L, n, d), which then draws
+        that row's normals.
+    :param all_valid: ``all_valid(valid) -> bool``, the early exit's
+        verdict (default: every slot here valid); a mesh across processes
+        passes its ranks' all-reduce, so every rank runs the same rounds.
     :return: ``(locations, n_fallback, rounds)``: ``n_fallback`` int32
         counts the slots that kept their ancestor along the last axis but
         one (a 0-d tensor for one ensemble); ``rounds`` is the number of
         redraw rounds, None when ``maxiter`` is 0 (no validity check)."""
     d = centers.shape[-1]
     batch = centers.shape[:-2]
+    if all_valid is None:
+        def all_valid(v):
+            return bool(v.all())
 
     def propose():
-        z = torch.randn(centers.shape, generator=generator,
-                        device=centers.device)
+        if isinstance(generator, (list, tuple)):
+            z = torch.stack([torch.randn(centers.shape[1:], generator=g,
+                                         device=centers.device)
+                             for g in generator])
+        else:
+            z = torch.randn(centers.shape, generator=generator,
+                            device=centers.device)
         return centers + z @ S_T
 
     def valid_of(y):
@@ -363,7 +378,7 @@ def propose_valid(model, generator, centers, S_T, x_anc, maxiter):
     valid = valid_of(new_x)
     # early exit: the common case needs no redraw round at all
     it = 0
-    while it < maxiter and not bool(valid.all()):
+    while it < maxiter and not all_valid(valid):
         fresh = propose()
         fresh_valid = valid_of(fresh)
         take = ~valid & fresh_valid

@@ -38,7 +38,9 @@ from .abstract_model import (DifferentiableModel, FiniteOutcomeModel,
                              expparams_at, keyed_kwargs, n_expparams)
 from .derived_models import BinomialModel
 from .distributions import ParticleDistribution
-from .parallel.mesh import placement, shard_state
+from .heuristics import mesh_inverse_cdf
+from .parallel.mesh import LOCAL, placement, reducer_of, shard_state
+from .parallel.resample import DistributedLiuWestResampler
 from .resamplers import LiuWestResampler
 from . import rejuvenation as rj
 from .utils import (in_ellipsoid, mvee, particle_covariance_mtx,
@@ -120,9 +122,12 @@ def _single_log_likelihood(model, locations, outcome, eps, generator=None):
                                 eps, **keyed_kwargs(model, generator))[0, :, 0]
 
 
-def _reweight(model, weights, locations, outcome, eps, generator=None):
+def _reweight(model, weights, locations, outcome, eps, generator=None,
+              reducer=LOCAL):
     """One reweighting: ``(unnormalized hyp, norm, log_norm)`` with
-    ``norm = Σ hyp``.
+    ``norm = Σ hyp`` over the whole ensemble (``reducer``: this process's
+    partial sums, and maxima, reduced over a mesh across processes; the
+    plain ones otherwise).
 
     * A model with a ``fused_reweight`` hook does the whole step itself.
     * A model with a stable ``log_likelihood`` takes the max-shifted path:
@@ -140,21 +145,22 @@ def _reweight(model, weights, locations, outcome, eps, generator=None):
         res = model.fused_reweight(weights, locations, outcome, eps)
         if res is not None:
             hyp, norm = res
+            norm = reducer.sum(norm)
             return hyp, norm, torch.log(torch.clamp_min(norm, EPS))
     if getattr(model, "has_log_likelihood", False):
         log_ell = _single_log_likelihood(model, locations, outcome, eps,
                                          generator)
         log_post = torch.log(torch.clamp_min(weights, 0.0)) + log_ell
-        M = torch.max(log_post)
+        M = reducer.max(torch.max(log_post))
         finite = torch.isfinite(M)
         safe_M = torch.where(finite, M, 0.0)
         hyp = torch.exp(log_post - safe_M)
-        shifted_norm = torch.sum(hyp)
+        shifted_norm = reducer.sum(torch.sum(hyp))
         log_norm = torch.log(torch.clamp_min(shifted_norm, EPS)) + safe_M
         return hyp, torch.where(finite, shifted_norm, 0.0), log_norm
     ell = _single_likelihood(model, locations, outcome, eps, generator)
     hyp = weights * ell
-    norm = torch.sum(hyp)
+    norm = reducer.sum(torch.sum(hyp))
     return hyp, norm, torch.log(torch.clamp_min(norm, EPS))
 
 
@@ -263,32 +269,35 @@ def _likelihood_grid(model, outcomes, locations, eps, generator=None):
 
 
 def _hypothetical_update(model, weights, locations, outcomes, eps,
-                         generator=None):
+                         generator=None, reducer=LOCAL):
     """Posterior weights for every (outcome, experiment) hypothesis:
     ``(norm_weights (n_out, n_eps, n), L (n_out, n, n_eps), norms
-    (n_out, n_eps))``."""
+    (n_out, n_eps))``, the first two over this process's particles, the
+    norms over the whole ensemble (``reducer``)."""
     L = _likelihood_grid(model, outcomes, locations, eps, generator)
     hyp = L * weights[None, :, None]
-    norms = torch.sum(hyp, dim=1)
+    norms = reducer.sum(torch.sum(hyp, dim=1))
     norm_w = hyp.movedim(1, 2) / torch.clamp_min(norms, EPS)[..., None]
     return norm_w, L, norms
 
 
 def _bayes_risk(model, weights, locations, outcomes, mask, eps, Q,
-                generator=None):
+                generator=None, reducer=LOCAL):
     """Expected posterior Q-weighted variance, marginalized over outcomes:
     risk(e) = Σ_o Pr(o|e) · Σ_j Q_j Var[θ_j | o, e]; padded outcome slots
     (``mask`` 0) contribute nothing.
 
     Two products of the likelihood table against the weighted raw moments,
     ``N = L·w`` and ``M = L·(w ⊙ [x, x²])``, normalized at the small
-    (n_out, n_cand, 2d) output: no per-particle posterior is built."""
+    (n_out, n_cand, 2d) output: no per-particle posterior is built. Both
+    products are sums over particles, so over a mesh across processes
+    each is this rank's partial, reduced by ``reducer``."""
     L = _likelihood_grid(model, outcomes, locations, eps, generator)
     L = L * mask[:, None, :]
     d = locations.shape[1]
     xaug = torch.cat([locations, locations * locations], dim=1)
-    N = torch.matmul(weights, L)  # (n_out, n_cand): Pr(outcome | e)
-    M = torch.matmul(L.transpose(1, 2), weights[:, None] * xaug)
+    N = reducer.sum(torch.matmul(weights, L))  # (n_out, n_cand): Pr(o | e)
+    M = reducer.sum(torch.matmul(L.transpose(1, 2), weights[:, None] * xaug))
     del L
     inv_n = 1.0 / torch.clamp_min(N, EPS)[..., None]
     mu = M[..., :d] * inv_n
@@ -300,21 +309,23 @@ def _bayes_risk(model, weights, locations, outcomes, mask, eps, Q,
 
 
 def _expected_information_gain(model, weights, locations, outcomes, mask,
-                               eps, generator=None):
+                               eps, generator=None, reducer=LOCAL):
     """Mutual information (nats) between the outcome and the parameters
     for each candidate: IG(e) = H[Pr(o|e)] − E_θ H[Pr(o|θ,e)], with padded
     outcome slots (``mask`` 0) contributing nothing. Holds at most two
-    (n_out, n, n_cand) tables at once beside the model's own."""
+    (n_out, n, n_cand) tables at once beside the model's own. The
+    marginal and the expected conditional entropy are sums over
+    particles, reduced by ``reducer``."""
     L = _likelihood_grid(model, outcomes, locations, eps, generator)
     L = L * mask[:, None, :]
-    marg = torch.matmul(weights, L)  # (n_out, n_cand): Pr(o | e)
+    marg = reducer.sum(torch.matmul(weights, L))  # (n_out, n_cand): Pr(o|e)
     h_marg = -torch.sum(marg * torch.log(torch.clamp_min(marg, EPS)), dim=0)
     # L·log L in place on the clamped copy
     ll = torch.clamp_min(L, EPS).log_().mul_(L)
     del L
     h_cond_per_theta = -torch.sum(ll, dim=0)  # (n, n_cand)
     del ll
-    return h_marg - weights @ h_cond_per_theta
+    return h_marg - reducer.sum(weights @ h_cond_per_theta)
 
 
 def _outcome_grid(model, eps, weights):
@@ -325,7 +336,7 @@ def _outcome_grid(model, eps, weights):
 
 
 def score_candidates(score_fn, model, weights, locations, eps, extra_args=(),
-                     candidate_chunk=None, generator=None):
+                     candidate_chunk=None, generator=None, reducer=LOCAL):
     """Score the candidate experiments ``eps`` (a canonical dict on the
     particles' device) with ``score_fn(model, w, x, outcomes, mask, eps,
     *extra_args)``, optionally ``candidate_chunk`` at a time: the pool is
@@ -334,12 +345,13 @@ def score_candidates(score_fn, model, weights, locations, eps, extra_args=(),
     to the pool. The likelihood table is (n_out, n, n_cand), so a chunk
     bounds the peak memory at a few (n_out, n, chunk) tables whatever the
     pool's size. No device→host copy. A keyed model's likelihood noise
-    comes from ``generator``."""
+    comes from ``generator``; ``score_fn`` takes ``reducer`` for its sums
+    over particles."""
     n_e = n_expparams(eps)
     outcomes, mask = _outcome_grid(model, eps, weights)
     if candidate_chunk is None or n_e <= candidate_chunk:
         return score_fn(model, weights, locations, outcomes, mask, eps,
-                        *extra_args, generator=generator)
+                        *extra_args, generator=generator, reducer=reducer)
     c = int(candidate_chunk)
     n_pad = (-n_e) % c
     if n_pad:
@@ -350,7 +362,8 @@ def score_candidates(score_fn, model, weights, locations, eps, extra_args=(),
         ec = {k: v[start:start + c] for k, v in eps.items()}
         scores.append(score_fn(model, weights, locations, outcomes,
                                model.outcome_mask(ec).to(weights.dtype), ec,
-                               *extra_args, generator=generator))
+                               *extra_args, generator=generator,
+                               reducer=reducer))
     return torch.cat(scores)[:n_e]
 
 
@@ -411,7 +424,7 @@ def _kl_divergence(w_p, x_p, w_q, x_q, kernel_bandwidth=None):
 
 def _update_step(model, resampler, state, outcome, eps, resample_thresh,
                  zero_weight_thresh, generator, check_resample=True,
-                 resample_gate=None):
+                 resample_gate=None, reducer=LOCAL):
     """One SMC update: reweight → normalize → (time-dependent models:
     ``update_timestep``) → ESS check → resample.
 
@@ -422,19 +435,24 @@ def _update_step(model, resampler, state, outcome, eps, resample_thresh,
         order.
     :param resample_gate: optional bool that additionally gates the
         resample (see :func:`resample_interval_gate`).
+    :param reducer: the sums over particles (the norm, the ESS) of an
+        ensemble sharded across processes (``reducer_of(sharding)``); the
+        state then holds this rank's rows, n counts the whole ensemble,
+        and every rank reaches the same verdicts.
     :return: ``(new_state, log_norm, was_zero)`` with ``log_norm`` a float
         and ``was_zero`` a bool.
     """
-    n = state.weights.shape[0]
+    n = state.weights.shape[0] * reducer.n_shards
     hyp, norm, log_norm = _reweight(
-        model, state.weights, state.locations, outcome, eps, generator)
+        model, state.weights, state.locations, outcome, eps, generator,
+        reducer)
     was_zero_t = norm <= zero_weight_thresh
     new_w = torch.where(was_zero_t, 1.0 / n,
                         hyp / torch.clamp_min(norm, EPS))
     locs = state.locations
     if model.is_time_dependent:
         locs = model.update_timestep(generator, locs, eps)[:, :, 0]
-    ess = 1.0 / torch.sum(new_w * new_w)
+    ess = 1.0 / reducer.sum(torch.sum(new_w * new_w))
     # the step's one device→host copy
     was_zero, below, log_norm_host = torch.stack([
         was_zero_t.to(torch.float32), (ess <= resample_thresh * n)
@@ -480,10 +498,20 @@ class SMCUpdater:
     :param sharding: ``None``, or a particle sharding
         (``ParticleMesh.particle_sharding``): the ensemble is D equal
         blocks over the mesh's shards, so ``n_particles`` must divide by
-        D (:meth:`ParticleMesh.pad_particles`). The shards of one
-        ensemble share one device, and there sharding is a layout: every
-        step's arithmetic is the unsharded updater's, to the bit, and only
-        a ``DistributedLiuWestResampler`` resamples shard by shard.
+        D (:meth:`ParticleMesh.pad_particles`). On a mesh in one process
+        the shards of one ensemble share one device, and there sharding
+        is a layout: every step's arithmetic is the unsharded updater's,
+        to the bit, and only a ``DistributedLiuWestResampler`` resamples
+        shard by shard. On a mesh across processes each rank holds its
+        own block (the global prior drawn from ``seed`` on every rank,
+        its rows kept), the sums over particles (the norm, the ESS, the
+        estimators, the design scores) are the ranks' partials reduced
+        over the group, the generator draws the same values on every rank
+        and so do the replicated results (``min_n_ess``,
+        ``log_total_likelihood``, ``resample_count``); the resampler must
+        be a ``DistributedLiuWestResampler`` on the mesh (the default
+        there), and time-dependent or keyed models, moves and the
+        resampling diagnostics raise :class:`NotImplementedError`.
 
     Resample-move (:mod:`qinfer_tpu_torch.rejuvenation`):
 
@@ -553,6 +581,7 @@ class SMCUpdater:
         self.prior = prior
         self._n_particles = int(n_particles)
         self.resample_thresh = float(resample_thresh)
+        given_resampler = resampler
         if resampler is None:
             # Moves that re-project (mcmc_canonicalize=True) let the
             # Liu-West resampler skip its own strict projection: one per
@@ -576,6 +605,10 @@ class SMCUpdater:
         self.seed = int(seed)
         self.device = placement(device, sharding)
         self.sharding = sharding
+        self._reducer = reducer_of(sharding)
+        if self._reducer is not LOCAL:
+            self.resampler = self._across_processes(
+                model, given_resampler, n_mcmc_moves, waste_free_stages)
         self.n_mcmc_moves = int(n_mcmc_moves)
         self.mcmc_proposal_scale = (None if mcmc_proposal_scale is None
                                     else float(mcmc_proposal_scale))
@@ -667,6 +700,44 @@ class SMCUpdater:
                     "compressed statistics)")
         self.reset()
 
+    def _across_processes(self, model, resampler, n_mcmc_moves,
+                          waste_free_stages):
+        """The resampler of an ensemble sharded across processes (the
+        mesh's two-level Liu-West unless one is given); what that layout
+        does not run yet raises."""
+        mesh = self.sharding.mesh
+        later = {
+            "a time-dependent model (its update_timestep draws per "
+            "particle)": bool(model.is_time_dependent),
+            "a keyed likelihood (its noise is drawn per particle)":
+                bool(getattr(model, "wants_likelihood_key", False)),
+            "Metropolis or waste-free moves": (int(n_mcmc_moves) > 0
+                                               or int(waste_free_stages) > 0),
+            "the resampling diagnostics": (self.debug_resampling
+                                           or self.track_resampling_divergence),
+        }
+        for what, asked in later.items():
+            if asked:
+                raise NotImplementedError(
+                    f"{what} on a mesh across processes is not ported "
+                    f"(ROADMAP queue 1)")
+        if resampler is None:
+            return DistributedLiuWestResampler(mesh, a=0.98)
+        if getattr(resampler, "mesh", None) is not mesh:
+            raise ValueError(
+                "an ensemble sharded across processes resamples with a "
+                "resampler over its mesh (DistributedLiuWestResampler(mesh)):"
+                f" {type(resampler).__name__} would resample each rank alone")
+        return resampler
+
+    def _one_process(self, what):
+        """Raise for a host-side estimator that needs every particle in
+        this process."""
+        if self._reducer is not LOCAL:
+            raise NotImplementedError(
+                f"{what} needs the whole ensemble in one process; on a mesh "
+                f"across processes each rank holds its own block")
+
     # -- state management --------------------------------------------------
 
     def reset(self, n_particles=None):
@@ -733,7 +804,7 @@ class SMCUpdater:
     def n_ess(self):
         """Effective sample size 1/Σw²."""
         w = self._state.weights
-        return float(1.0 / torch.sum(w * w))
+        return float(1.0 / self._reducer.sum(torch.sum(w * w)))
 
     @property
     def min_n_ess(self):
@@ -831,7 +902,8 @@ class SMCUpdater:
             new_state, log_norm, was_zero = _update_step(
                 self.model, self.resampler, prev_state, outcome_t, eps,
                 self.resample_thresh, self.zero_weight_thresh, self.generator,
-                check_resample=check and self.waste_free_stages == 0)
+                check_resample=check and self.waste_free_stages == 0,
+                reducer=self._reducer)
             if was_zero:
                 self._handle_zero_weight()
             if new_state.just_resampled:
@@ -1063,7 +1135,9 @@ class SMCUpdater:
         """Posterior weights that each (outcome, experiment) pair would
         give, without committing: ``(n_outcomes, n_expparams, n_particles)``,
         with the likelihood table ``(n_outcomes, n_particles, n_expparams)``
-        and the normalizations ``(n_outcomes, n_expparams)`` on request."""
+        and the normalizations ``(n_outcomes, n_expparams)`` on request
+        (across processes, the weights and the table of this rank's
+        particles, and the normalizations of the whole ensemble)."""
         eps = self.model.canonicalize_expparams(expparams, self.device)
         outcomes = torch.as_tensor(outcomes, device=self.device)
         if outcomes.ndim == 0:
@@ -1072,7 +1146,7 @@ class SMCUpdater:
                                 * n_expparams(eps)):
             norm_w, L, norms = _hypothetical_update(
                 self.model, self._state.weights, self._state.locations,
-                outcomes, eps, self._design_generator)
+                outcomes, eps, self._design_generator, self._reducer)
         out = (norm_w,)
         if return_likelihood:
             out = out + (L,)
@@ -1090,7 +1164,8 @@ class SMCUpdater:
                                 * self.n_particles * n_expparams(eps)):
             return score_candidates(score_fn, self.model, self._state.weights,
                                     self._state.locations, eps, extra_args,
-                                    candidate_chunk, self._design_generator)
+                                    candidate_chunk, self._design_generator,
+                                    self._reducer)
 
     def bayes_risk(self, expparams, candidate_chunk=None):
         """Expected posterior Q-loss of each candidate experiment;
@@ -1109,12 +1184,22 @@ class SMCUpdater:
 
     def est_mean(self):
         """Posterior mean, (d,)."""
-        return particle_mean(self._state.weights, self._state.locations)
+        return self._reducer.sum(particle_mean(self._state.weights,
+                                               self._state.locations))
+
+    def _moments(self):
+        """(mean, covariance) over the whole ensemble; across processes the
+        covariance's partials are centred on the global mean."""
+        w, x = self._state.weights, self._state.locations
+        if self._reducer is LOCAL:
+            return weighted_moments(w, x)
+        mu = self.est_mean()
+        xc = x - mu[None, :]
+        return mu, self._reducer.sum((xc * w[:, None]).T @ xc)
 
     def est_covariance_mtx(self, corr=False):
         """Posterior covariance (or correlation) matrix, (d, d)."""
-        cov = particle_covariance_mtx(self._state.weights,
-                                      self._state.locations)
+        cov = self._moments()[1]
         if corr:
             std = torch.sqrt(torch.clamp_min(torch.diag(cov), EPS))
             cov = cov / std[:, None] / std[None, :]
@@ -1124,26 +1209,36 @@ class SMCUpdater:
         """Posterior mean of ``fn``, which maps one (d,) location to a
         tensor or a tuple, list or dict of them (vectorized with
         :func:`torch.func.vmap`)."""
+        self._one_process("est_meanfn")
         return particle_meanfn(self._state.weights, self._state.locations,
                                fn)
 
     def est_entropy(self):
         """Entropy −Σ wᵢ log wᵢ of the particle weights (0-d tensor)."""
-        return _entropy(self._state.weights)
+        return self._reducer.sum(_entropy(self._state.weights))
 
     def est_kl_divergence(self, other, kernel_bandwidth=None):
         """KL divergence D(self ‖ other) between two particle posteriors,
         through Gaussian kernel density estimates (bandwidth by Silverman's
         rule on ``other``'s covariance unless given), a block of at most
         2²² (block, n, d) differences at a time (0-d tensor)."""
+        self._one_process("est_kl_divergence")
         return _kl_divergence(self._state.weights, self._state.locations,
                               other.particle_weights,
                               other.particle_locations, kernel_bandwidth)
 
     def sample(self, n=1, generator=None):
         """``n`` particles drawn ∝ their weights, on the updater's
-        generator unless one is given: (n, d)."""
+        generator unless one is given: (n, d); across processes the same
+        rows on every rank, from a generator that draws the same values on
+        every rank."""
         g = self.generator if generator is None else generator
+        if self._reducer is not LOCAL:
+            # the same n rows on every rank: a replicated generator's
+            # inverse CDF over the shards
+            return mesh_inverse_cdf(g, torch.clamp_min(
+                self._state.weights, EPS), self._state.locations,
+                self.sharding.mesh, n)[0]
         idx = torch.multinomial(torch.clamp_min(self._state.weights, EPS), n,
                                 replacement=True, generator=g)
         return self._state.locations[idx]
@@ -1152,6 +1247,7 @@ class SMCUpdater:
         """The current posterior as a :class:`~qinfer_tpu_torch.
         distributions.ParticleDistribution` (a warm start for another
         updater)."""
+        self._one_process("posterior_distribution")
         return ParticleDistribution(self._state.locations,
                                     self._state.weights)
 
@@ -1165,6 +1261,7 @@ class SMCUpdater:
         JAX package's ``argsort(-w)``), the mass summed in float64 on the
         host. Returns the (k, d) NumPy points (and the rest with
         ``return_outside``)."""
+        self._one_process("est_credible_region")
         w = self._state.weights
         x = self._state.locations
         if modelparam_slice is not None:
@@ -1208,11 +1305,17 @@ class SMCUpdater:
         if method == "est_cov":
             from scipy.stats import chi2
 
-            x = self._state.locations
-            if modelparam_slice is not None:
-                x = x[:, modelparam_slice]
-            mu, cov = weighted_moments(self._state.weights, x)
-            scale = chi2.ppf(level, df=x.shape[1])
+            if self._reducer is LOCAL:
+                x = self._state.locations
+                if modelparam_slice is not None:
+                    x = x[:, modelparam_slice]
+                mu, cov = weighted_moments(self._state.weights, x)
+            else:
+                mu, cov = self._moments()
+                if modelparam_slice is not None:
+                    mu = mu[modelparam_slice]
+                    cov = cov[modelparam_slice][:, modelparam_slice]
+            scale = chi2.ppf(level, df=mu.shape[0])
             return in_ellipsoid(points, scale * cov.cpu().numpy(),
                                 mu.cpu().numpy())
         if method == "hpd_hull":
@@ -1236,6 +1339,7 @@ class SMCUpdater:
         """Weighted-histogram estimate of one parameter's marginal density:
         ``(bin centers, density)``, NumPy; ``smoothing`` is a Gaussian
         filter's width in bins."""
+        self._one_process("posterior_marginal")
         w = self._state.weights.cpu().numpy()
         x = self._state.locations[:, idx_param].cpu().numpy()
         lo = range_min if range_min is not None else x.min()
@@ -1254,6 +1358,7 @@ class SMCUpdater:
     # -- cluster estimators (host, scikit-learn) ----------------------------
 
     def _host_cloud(self):
+        self._one_process("the cluster estimators")
         return (self._state.weights.cpu().numpy(),
                 self._state.locations.cpu().numpy())
 
@@ -1393,7 +1498,8 @@ class SMCUpdaterBCRB(SMCUpdater):
         g = torch.as_tensor(glp(self._state.locations))
         g = torch.atleast_2d(g).expand(-1, d)
         w = self._state.weights
-        return torch.einsum("n,ni,nj->ij", w, g, g).cpu().numpy()
+        return self._reducer.sum(torch.einsum("n,ni,nj->ij", w, g,
+                                              g)).cpu().numpy()
 
     @property
     def current_bim(self):
@@ -1419,6 +1525,7 @@ class SMCUpdaterBCRB(SMCUpdater):
         else:
             w, locs = self._initial_weights, self._initial_locations
         fi = self.model.fisher_information(locs, eps)  # (d, d, n, 1)
-        self._current_bim = self._current_bim + torch.einsum(
-            "ijnE,n->ij", fi, w).cpu().numpy().astype(np.float64)
+        self._current_bim = self._current_bim + self._reducer.sum(
+            torch.einsum("ijnE,n->ij", fi, w)).cpu().numpy().astype(
+            np.float64)
         super().update(outcome, eps, check_for_resample=check_for_resample)

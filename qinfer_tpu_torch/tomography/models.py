@@ -15,12 +15,14 @@ stays on the host in NumPy.
 from __future__ import annotations
 
 import math
+import warnings
 
 import numpy as np
 import torch
 
 from ..abstract_model import FiniteOutcomeModel, atleast_2d
-from ..config import EPS
+from .._exceptions import PerformanceWarning
+from ..config import DEFAULT_DEVICE, EPS
 from ..ops.jacobi import jacobi_project_lanes, jacobi_project_lanes_looped
 from .bases import (EMBEDDED_SWEEPS, batched_cholesky_small,
                     embed_hermitian_host)
@@ -82,6 +84,18 @@ class TomographyModel(FiniteOutcomeModel):
                 "represented")
         self.allow_subnormalized = False
         self.psd_tol = float(psd_tol)
+        if (2 * int(basis.dim) > 32
+                and torch.device(DEFAULT_DEVICE).type == "cuda"
+                and torch.cuda.is_available()):
+            # past embedded d = 32 the projection leaves the Jacobi
+            # kernels (K4, K5) for torch.linalg.eigh: say so before the
+            # first projection, as the JAX package does on the TPU
+            warnings.warn(
+                f"TomographyModel with Hilbert dimension {basis.dim} "
+                f"(embedded {2 * basis.dim} > 32) exceeds the Jacobi "
+                f"kernels' gate: PSD projections on the card fall back to "
+                f"torch.linalg.eigh (cuSOLVER)", PerformanceWarning,
+                stacklevel=2)
         self.projection_count = 0
         # the fixed trace coordinate 1/√d, rounded as float32 arithmetic
         self._trace_coord = float(

@@ -1032,3 +1032,16 @@ def test_distributed_resample_waits_for_the_card_twice(_card, exchange):
         ParticleMesh([_card] * 8), exchange=exchange))
     assert two_level == 2
     assert syncs(LiuWestResampler(canonicalize=False)) >= two_level
+
+
+def test_tomography_model_warns_past_the_jacobi_gate_on_the_card(_card):
+    import warnings
+
+    from qinfer_tpu_torch import PerformanceWarning
+    from qinfer_tpu_torch.tomography import TomographyModel, pauli_basis
+
+    with pytest.warns(PerformanceWarning, match="embedded 64 > 32"):
+        TomographyModel(pauli_basis(5))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", PerformanceWarning)
+        TomographyModel(pauli_basis(4))

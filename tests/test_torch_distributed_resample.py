@@ -36,7 +36,7 @@ from qinfer_tpu_torch.parallel import (DistributedLiuWestResampler,
                                        ParticleMesh,
                                        butterfly_exchange_schedule,
                                        shard_systematic_ancestors)
-from qinfer_tpu_torch.parallel.resample import two_level_fill
+from qinfer_tpu_torch.parallel.resample import shard_generators, two_level_fill
 from qinfer_tpu_torch.utils import weighted_moments
 
 
@@ -158,11 +158,16 @@ def test_two_level_fill_equals_jax_pieces_to_the_bit(exchange):
     np.testing.assert_array_equal(got.numpy().view(np.int32),
                                   want.view(np.int32))
 
-    # the resampler's first two draws are u₁, then u₂
-    g = torch.Generator().manual_seed(3)
+    # the resampler's draws: u₁ from its generator, then u₂[s], the first
+    # draw of shard s's generator (seeded from the state after u₁)
     rs = DistributedLiuWestResampler(mesh, a=1.0, exchange=exchange)
-    u1_t = torch.rand((), generator=g)
-    u2_t = torch.rand((D,), generator=g)
+    u1_t, u2_t = rs.fill_inputs(torch.Generator().manual_seed(3),
+                                torch.from_numpy(w), torch.from_numpy(x))[:2]
+    g = torch.Generator().manual_seed(3)
+    assert u1_t == torch.rand((), generator=g)
+    assert torch.equal(u2_t, torch.stack([
+        torch.rand((), generator=gs)
+        for gs in shard_generators(g, mesh, torch.device("cpu"))]))
     new_w, new_x = rs(FreeModel(), torch.Generator().manual_seed(3),
                       torch.from_numpy(w), torch.from_numpy(x))
     fill = two_level_fill(mesh, u1_t, u2_t, wv, xv, exchange)

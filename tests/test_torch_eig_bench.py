@@ -119,6 +119,20 @@ def test_expdesign_bench_recovers_omega(chunk):
         assert abs(r["posterior_mean"] - want["posterior_mean"]) < 1e-3
 
 
+def test_expdesign_bench_records_each_step():
+    r = eb.run_bench(2048, 12, 4, 0, device="cpu", record=True)
+    plain = eb.run_bench(2048, 12, 4, 0, device="cpu")
+    assert r["posterior_mean"] == plain["posterior_mean"]
+    assert len(r["t_record"]) == len(r["mean_record"]) == 12
+    assert r["mean_record"][-1] == r["posterior_mean"]
+    assert r["resample_record"][-1] == r["resamples"] >= 1
+    assert r["resample_record"] == sorted(r["resample_record"])
+    x = r["state"].locations[:, 0].double()
+    w = r["state"].weights.double()
+    sd = float(w @ (x - w @ x) ** 2) ** 0.5
+    np.testing.assert_allclose(r["posterior_sd"], sd, rtol=1e-4)
+
+
 def test_expdesign_bench_refuses_a_chunk_that_does_not_divide():
     with pytest.raises(ValueError, match="multiple"):
         eb.run_bench(256, 2, 16, 5, device="cpu")

@@ -311,15 +311,19 @@ def test_distinct_devices_shard_trials_but_not_one_ensemble():
     assert [d.type for d in mesh.devices] == ["cpu", "meta"]
     for get in (lambda: mesh.particle_sharding, lambda: mesh.device,
                 lambda: ParticleMesh(["cpu", "meta"]).location_sharding):
-        with pytest.raises(NotImplementedError, match="item 15"):
+        with pytest.raises(NotImplementedError,
+                           match="distinct devices of one process"):
             get()
 
 
 def test_initialize_multihost_returns_alone_and_refuses_a_coordinator():
+    # one process: nothing to join; a coordinator with a backend the port
+    # has no route for is refused before any rendezvous (a group across
+    # processes is tested in tests/test_torch_multiprocess.py)
     assert initialize_multihost() is None
     assert initialize_multihost(num_processes=1) is None
-    with pytest.raises(NotImplementedError, match="item 15"):
-        initialize_multihost("localhost:1234", 2, 0)
+    with pytest.raises(ValueError, match="gloo"):
+        initialize_multihost("localhost:1234", 2, 0, backend="mpi")
 
 
 def test_updater_refuses_a_size_or_device_the_mesh_cannot_take(pm):

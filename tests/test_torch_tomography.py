@@ -351,3 +351,30 @@ def test_stabilizer_and_product_proposals_are_valid_effects():
             assert abs(np.trace(E) - 1) < 1e-5
     with pytest.raises(ValueError):
         ttomo.ProductHeuristic(tu, tb, [ttomo.RandomPauliHeuristic] * 2)
+
+
+def test_performance_warning_is_exported_and_a_user_warning():
+    from qinfer_tpu._exceptions import PerformanceWarning as JaxWarning
+
+    assert "PerformanceWarning" in qt.__all__
+    assert issubclass(qt.PerformanceWarning, UserWarning)
+    assert qt.PerformanceWarning.__name__ == JaxWarning.__name__
+
+
+def test_performance_warning_gates_on_the_card_past_embedded_32(monkeypatch):
+    """As the JAX package's gate (``tests/test_round4_fixes.py``): an
+    embedded dimension past 32 warns where the projections would run on
+    the card, and is silent on the CPU and at or under the gate."""
+    import warnings
+
+    wide, gate = ttomo.pauli_basis(5), ttomo.pauli_basis(4)  # 64, 32
+    assert not torch.cuda.is_available()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", qt.PerformanceWarning)
+        ttomo.TomographyModel(wide)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.warns(qt.PerformanceWarning, match="torch.linalg.eigh"):
+        ttomo.TomographyModel(wide)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", qt.PerformanceWarning)
+        ttomo.TomographyModel(gate)
