@@ -116,7 +116,21 @@ one line, and any failure exits non-zero without the final ``ok`` line:
    5 standard errors), each rank's K1 at its last step (n = 2²¹) and K3
    on its first fill (1 x 2²¹ rows) held against their plain versions
    (K3 to the bit; their times under ``other_shapes``), and each run's
-   wall, rate and collectives' wall printed.
+   wall, rate and collectives' wall printed. Then the rest of the engine
+   on the ranks (``qinfer_tpu_torch.parallel.runs``), each leg against
+   the same run on the one-process mesh of 2 shards (the same draws and
+   the first resample's inputs before it, to the bit and to rtol 1e-5,
+   then by law): the resample-move recipe at 50 000 x 255 x 400 steps,
+   saved after step 200 and resumed on 2 fresh ranks to the bit, the
+   archive loaded into one process equal to the ranks' blocks, each
+   fidelity above the prior mean's and the two within
+   ``PROCESS_FIDELITY_BAR``, acceptance in [0.09, 0.19], one move call a
+   resample, each rank's K3 (1 x 25 000 rows, d = 255) and K5 (25 000,
+   32, 32) equal to their plain versions, K6 once a rank; the drift walk
+   of ``item8_bench``, its static model under waste-free resample-move
+   and ALE, each within ``item8_bench``'s 4 sd; ``perf_test_scan_batch``
+   with accelerated precession, 8 x 131 072 x 64, on the trial mesh
+   across the ranks, equal to the one-process trial mesh to the bit.
    Then one more precession run records the largest |ω·t/2| that K1
    meets, and K1 is checked on that step's particles and t;
 6. timing: each kernel's time against its plain version's and, where one
@@ -148,6 +162,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+_START = time.perf_counter()
 N_MAIN = 1 << 22
 #: the tomography paths: (mode, particles, steps)
 TOMO_PATHS = (("process", 50_000, 1000), ("diffusive", 100_000, 200))
@@ -190,7 +205,26 @@ SCALING_SHARDS = (1, 8)
 #: ranks' time limit
 PROCESSES = 2
 PROCESS_RESAMPLE_BAR = 10
-PROCESS_TIMEOUT_S = 300
+PROCESS_TIMEOUT_S = 420
+#: the process phase's legs of the rest of the engine, each over the
+#: ranks and on a one-process mesh of ``PROCESSES`` shards: the
+#: resample-move recipe (particles, steps, the step it is saved after and
+#: resumed from), the drift walk, its static model under waste-free
+#: resample-move and ALE (particles, steps), and the trials (trials,
+#: particles, steps; seed ``PARALLEL_SEED``)
+PROCESS_FLAGSHIP = (50_000, 400, 200)
+PROCESS_DRIFT = (50_000, 120)
+PROCESS_WASTE_FREE = (50_000, 40)
+PROCESS_ALE = (50_000, 12)
+PROCESS_TRIALS = (8, 131_072, 64)
+#: the bar on |fidelity(ranks) − fidelity(one process)| of the
+#: resample-move leg: the runs part at the first resample and are then
+#: two draws of one law (PERF.md §6 sets it from a CPU rehearsal)
+PROCESS_FIDELITY_BAR = 0.05
+#: the mean Metropolis acceptance of the resample-move recipe
+PROCESS_ACCEPTANCE = (0.09, 0.19)
+#: item8_bench's bar: |posterior mean − truth| / sd
+PROCESS_Z_BAR = 4.0
 #: rows of each Jacobi batch held against host float64
 N_F64 = 2000
 #: the process path's resample fill: (particles, parameters)
@@ -200,6 +234,8 @@ K3_PROCESS = (50_000, 255)
 #: operation rounded on its own (the sheet's 67 TFLOP/s count an FMA as 2)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 33.5e12
+#: the card's L2 (H100 SXM: 50 MB)
+L2_BYTES = 50 * 2 ** 20
 
 
 def bound(nbytes, ops):
@@ -210,6 +246,21 @@ def bound(nbytes, ops):
     by_ops = ops / F32_OPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                              "operations")
+
+
+def k3_bytes(m, d):
+    """The bytes a K3 call on counts ``m`` at width ``d`` must move: the
+    starts read (4 B a row), each row with copies read once (4·d B; the
+    kernel never reads a row of count 0, so this run's counts say how
+    many are read), the output written (4·d B a row, as many rows as
+    counts)."""
+    n = m.numel()
+    return 4 * n + 4 * d * int((m > 0).sum()) + 4 * d * n
+
+
+def k3_bound(m, d):
+    """Bound of a K3 call (:func:`k3_bytes`; no arithmetic)."""
+    return bound(k3_bytes(m, d), 0)
 
 
 def jacobi_bound(n, d, sweeps, project):
@@ -236,7 +287,9 @@ def require(cond, what):
 
 
 def say(phase, msg):
-    print(f"[{phase}] {msg}", flush=True)
+    """One line of a phase, with the seconds since the script started."""
+    print(f"[{phase} {time.perf_counter() - _START:.1f} s] {msg}",
+          flush=True)
 
 
 def device_events(fn, reps, tries=3):
@@ -316,9 +369,11 @@ def queued_ms(fn, reps=20, clock_hz=2.0e9):
             "time)")
 
 
-def event_ms(fn, reps=5):
+def event_ms(fn, reps=5, warm=True):
     """Time of one ``fn()`` in ms between two CUDA events around ``reps``
-    back-to-back calls. For the Jacobi kernels and their plain versions:
+    back-to-back calls, after one call to warm up unless ``warm`` is
+    false (the caller warmed it). For the Jacobi kernels and their plain
+    versions:
     the plain ones launch ~10⁴ kernels a call, and after some 30 such
     profiler sessions in one process the profiler stopped reporting
     device time (two calls on the card). A kernel's single launch or the
@@ -326,7 +381,8 @@ def event_ms(fn, reps=5):
     events, so this is device time up to the first launch's latency."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -358,6 +414,25 @@ def timed(result, kernel, plain, library=None, no_library=None,
     kernel's result under ``other_shapes``, with the dict's other keys."""
     return dict(result=result, kernel=kernel, plain=plain, library=library,
                 no_library=no_library, bound=bound_at, attach=attach)
+
+
+def from_device_memory(call, args, nbytes):
+    """``call(*args)`` as a function of no arguments that takes, call
+    after call, the next of copies of ``args`` in turn, enough copies that
+    the calls between two of one copy move three times the L2
+    (``nbytes``: what one call reads and writes). Each call so finds its
+    inputs in device memory, as a call on the path does, and not in the
+    L2 where the call before left them. Arguments that are not tensors
+    are passed as they are."""
+    import itertools
+
+    import torch
+
+    sets = [args] + [tuple(a.clone() if torch.is_tensor(a) else a
+                           for a in args)
+                     for _ in range(math.ceil(3 * L2_BYTES / nbytes))]
+    turn = itertools.cycle(sets)
+    return lambda: call(*next(turn))
 
 
 def hold_k1(omega, w, t, outcome, where):
@@ -484,14 +559,13 @@ def check_kernels(torch, dev):
                 f"K3 not bit-exact at n={x.shape[0]}, d={x.shape[1]}")
 
     def fill_timed(result, m, s, x):
-        # bound: starts and x read, out written; no arithmetic
         nn, d = x.shape
         return timed(
             result, lambda: sr.streaming_resample_locations(m, s, x),
             lambda: sr.streaming_resample_locations_plain(m, s, x),
             library=lambda: torch.repeat_interleave(x, m, dim=0,
                                                     output_size=nn),
-            bound_at=bound(4 * nn + 8 * nn * d, 0))
+            bound_at=k3_bound(m, d))
 
     timers.append(fill_timed(
         dict(name="streaming_resample_locations", route="cuda",
@@ -732,7 +806,8 @@ def wide_projection(torch, dev, g):
                        f"|· - f64| {err:.3g}")
         return
     try:
-        ms = event_ms(lambda: project_psd_embedded(a), reps=1)
+        # cuSOLVER is warm from the small call; one full call is ~40 s
+        ms = event_ms(lambda: project_psd_embedded(a), reps=1, warm=False)
     except RuntimeError as exc:
         cusolver_refusal(exc, a)
         return
@@ -1292,7 +1367,7 @@ def run_config5(torch, dev, card):
         lambda: sr.streaming_resample_locations(m, starts, x),
         lambda: sr.streaming_resample_locations_plain(m, starts, x),
         library=lambda: torch.repeat_interleave(x, m, dim=0, output_size=n),
-        bound_at=bound(4 * n + 8 * n, 0))
+        bound_at=k3_bound(m, 1))
     return entry, state, mean0
 
 
@@ -1370,7 +1445,7 @@ def run_models_path(torch, dev, card):
                 m, s, x),
             library=lambda m=m, x=x, nn=nn: torch.repeat_interleave(
                 x, m, dim=0, output_size=nn),
-            bound_at=bound(4 * nn + 8 * nn * d, 0),
+            bound_at=k3_bound(m, d),
             attach=dict(kernel="streaming_resample_locations",
                         launches=cfg_runs[-1][0][
                             "streaming_resample_locations"])))
@@ -1504,7 +1579,7 @@ def run_item8_path(torch, dev, card):
                         sr.streaming_resample_locations_plain(m, s, x),
                     library=lambda m=m, x=x, nn=nn: torch.repeat_interleave(
                         x, m, dim=0, output_size=nn),
-                    bound_at=bound(4 * nn + 8 * nn * d, 0),
+                    bound_at=k3_bound(m, d),
                     attach=dict(kernel="streaming_resample_locations",
                                 launches=k3)))
         extra = {k: rec[k] for k in (
@@ -1770,7 +1845,7 @@ def run_trials_path(torch, dev, card):
         lambda: sr.streaming_resample_locations_plain(m, starts, flat),
         library=lambda: torch.repeat_interleave(flat, m, dim=0,
                                                 output_size=rows),
-        bound_at=bound(4 * rows + 8 * rows, 0),
+        bound_at=k3_bound(m, 1),
         attach=dict(kernel="streaming_resample_locations",
                     launches=k3_batched))
     # bound: ω and w read, h written; ~10 operations a particle (cosf as 1)
@@ -2124,7 +2199,7 @@ def run_parallel_path(torch, dev, card, config5_state, config5_mean):
         lambda: sr.streaming_resample_locations_plain(m, starts, flat),
         library=lambda: torch.repeat_interleave(flat, m, dim=0,
                                                 output_size=rows),
-        bound_at=bound(4 * rows + 8 * rows, 0),
+        bound_at=k3_bound(m, 1),
         attach=dict(kernel="streaming_resample_locations",
                     launches=launches["streaming_resample_locations"]))
     return launches, flagship, entry
@@ -2145,16 +2220,19 @@ def _run_ranks(torch, tasks, *args):
         cmd = [sys.executable, "-m", "qinfer_tpu_torch.parallel.worker",
                "--world", str(PROCESSES), "--init-method",
                f"file://{tmp}/store", "--tasks", tasks, *map(str, args)]
+        # each rank writes to a file: a rank blocked on a full pipe would
+        # stall the others at their next collective
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
+                for r in range(PROCESSES)]
         procs = [subprocess.Popen(cmd + ["--rank", str(r)], cwd=ROOT,
-                                  env=env, stdout=subprocess.PIPE,
+                                  env=env, stdout=logs[r],
                                   stderr=subprocess.STDOUT, text=True)
                  for r in range(PROCESSES)]
-        outs, deadline = [], time.perf_counter() + PROCESS_TIMEOUT_S
+        deadline = time.perf_counter() + PROCESS_TIMEOUT_S
         try:
             for p in procs:
                 try:
-                    outs.append(p.communicate(timeout=max(
-                        1.0, deadline - time.perf_counter()))[0])
+                    p.wait(timeout=max(1.0, deadline - time.perf_counter()))
                 except subprocess.TimeoutExpired:
                     raise SmokeFailure(f"processes: a rank outlived "
                                        f"{PROCESS_TIMEOUT_S} s")
@@ -2162,7 +2240,12 @@ def _run_ranks(torch, tasks, *args):
             for p in procs:
                 if p.poll() is None:
                     p.kill()
-                    p.communicate()
+                    p.wait()
+            outs = []
+            for f in logs:
+                f.seek(0)
+                outs.append(f.read())
+                f.close()
     results = []
     for r, (p, out) in enumerate(zip(procs, outs)):
         lines = [json.loads(ln[len("RESULT "):]) for ln in out.splitlines()
@@ -2185,6 +2268,335 @@ def _replicated(line):
                          "particle_updates_per_s", "candidate_scores_per_s",
                          "peak_memory_bytes")
             and not k.startswith("local")}
+
+
+def _leg_specs():
+    """The worker's ``--runs`` of the process phase's legs."""
+    n, steps, save_at = PROCESS_FLAGSHIP
+    return [("flagship", n, steps, save_at),
+            ("drift",) + PROCESS_DRIFT + (None,),
+            ("drift_waste_free",) + PROCESS_WASTE_FREE + (None,),
+            ("ale",) + PROCESS_ALE + (None,)]
+
+
+def _runs_arg(specs):
+    return ",".join(":".join(str(v) for v in spec if v is not None)
+                    for spec in specs)
+
+
+def _one_process_legs(torch, dev):
+    """The legs on a one-process mesh of ``PROCESSES`` shards of the card:
+    each run's record (``qinfer_tpu_torch.parallel.runs.drive``) by name,
+    and the trials' digests on the one-process trial mesh."""
+    from qinfer_tpu_torch import (AcceleratedPrecessionModel,
+                                  UniformDistribution)
+    from qinfer_tpu_torch.parallel import ParticleMesh, runs
+    from qinfer_tpu_torch.parallel.worker import trial_digests
+    from qinfer_tpu_torch.perf_testing import perf_test_scan_batch
+
+    mesh = ParticleMesh([dev] * PROCESSES)
+    out = {}
+    for name, n, steps, _ in _leg_specs():
+        t0 = time.perf_counter()
+        out[name] = runs.drive(mesh, runs.make_run(mesh, name, n, steps),
+                               steps)
+        torch.cuda.synchronize()
+        out[name]["wall_s"] = time.perf_counter() - t0
+        out[name]["local_run_s"] = (out[name]["wall_s"]
+                                    - out[name]["local_record_s"])
+    trials, n, steps = PROCESS_TRIALS
+    runner, seeds = perf_test_scan_batch(
+        AcceleratedPrecessionModel(), n, UniformDistribution([[0.0, 1.0]]),
+        steps, trials, seed=PARALLEL_SEED,
+        mesh=ParticleMesh([dev] * PROCESSES, axis_name="trials"),
+        return_runner=True, device=dev)
+    record = runner(seeds)
+    out["trials"] = {"digests": trial_digests(record),
+                     "resample_counts": runner.resample_counts}
+    return out
+
+
+def _loaded_checksums(torch, dev, path):
+    """The resample-move leg's checkpoint (saved by the ranks) loaded into
+    one process, on a one-process mesh of 2 · ``PROCESSES`` shards: the
+    checksums of its weights and locations over ``PROCESSES`` blocks."""
+    from qinfer_tpu_torch.checkpoint import load_updater
+    from qinfer_tpu_torch.parallel import ParticleMesh, runs
+
+    n, _, save_at = PROCESS_FLAGSHIP
+    run = runs.make_run(ParticleMesh([dev] * (2 * PROCESSES)), "flagship",
+                        n, 0, seed=runs.SEED + 2)
+    load_updater(path, run.updater)
+    u = run.updater
+    require(u.n_particles == n and len(u.normalization_record) == save_at,
+            f"processes flagship: the archive loaded into one process "
+            f"holds {u.n_particles} particles and "
+            f"{len(u.normalization_record)} steps")
+    blocks = ParticleMesh([dev] * PROCESSES)
+    return [runs.checksums(blocks, u.particle_weights).tolist(),
+            runs.checksums(blocks, u.particle_locations).tolist()]
+
+
+def _held_alike(name, ranks, one):
+    """The steps a leg's two layouts share (the same designs, before the
+    first resample): the same generator states and particles to the bit,
+    the same first resample, and the normalizations and estimates to rtol
+    1e-5. Returns ``(first resample, steps alike, the largest relative
+    difference)``."""
+    from qinfer_tpu_torch.parallel import runs
+
+    a = ranks[0]
+    alike = runs.alike_steps(a, one)
+    first = runs.first_resample(one)
+    upto = alike if first is None else min(alike, first + 1)
+    require(upto == alike or runs.first_resample(a) == first,
+            f"processes {name}: the first resample comes at step "
+            f"{runs.first_resample(a)} on the ranks and {first} in one "
+            f"process")
+    require(a["generator"][:upto] == one["generator"][:upto]
+            and all(line["local_x"][0][:upto] == one["local_x"][r][:upto]
+                    for r, line in enumerate(ranks)),
+            f"processes {name}: the generator or the particles differ from "
+            f"the one-process run's before step {upto}")
+    rel = max(runs.rel_diff(a["norm"][:upto], one["norm"][:upto]),
+              runs.rel_diff(a["est"][:max(upto - 1, 0)],
+                            one["est"][:max(upto - 1, 0)]))
+    require(rel <= 1e-5, f"processes {name}: the steps before the first "
+                         f"resample part by rtol {rel}")
+    return first, alike, rel
+
+
+def _walls(a, o):
+    """A leg's walls on rank 0 (``a``) and in one process (``o``): the
+    run's own, then the record's reads (:func:`qinfer_tpu_torch.parallel.
+    runs.drive`), each with its collectives."""
+    return (f"the run {a['local_run_s']:.4f} s on the ranks "
+            f"({a['run_collective_calls']} collectives a rank taking "
+            f"{a['local_run_collective_s']:.4f} s), {o['local_run_s']:.4f} s "
+            f"in one process; the record's reads besides "
+            f"{a['local_record_s']:.4f} s on the ranks "
+            f"({a['record_collective_calls']} collectives taking "
+            f"{a['local_record_collective_s']:.4f} s), "
+            f"{o['local_record_s']:.4f} s in one process")
+
+
+def _check_process_legs(torch, dev, card, results, resumed, one, kept,
+                        loaded):
+    """Phase 5's legs of the rest of the engine on the ranks, against
+    ``one`` (:func:`_one_process_legs`): (d) the resample-move recipe
+    (``PROCESS_FLAGSHIP``), resumed from its checkpoint on fresh ranks
+    (``resumed``) to the bit, its archive loaded into one process
+    (``loaded``, :func:`_loaded_checksums`) equal to the ranks' blocks,
+    the steps before its first resample alike (:func:`_held_alike`), then
+    by law (fidelities, acceptance, one move call a resample), each
+    rank's K3 and K5 on its ``kept`` inputs against the plain versions;
+    (e) the drift walk, its waste-free static model and ALE, alike while
+    their PGH designs agree and before the first resample, then within
+    ``item8_bench``'s bar; (f) the trials equal to the one-process trial
+    mesh to the bit, with each rank's launches. Returns ``(launches on rank 0's
+    resample-move run, launches on rank 0's trials, timing entries of K3
+    and K5 at rank 0's shapes)``."""
+    from qinfer_tpu_torch import tomography_bench as tb
+    from qinfer_tpu_torch.config import EPS
+    from qinfer_tpu_torch.ops import jacobi as jac
+    from qinfer_tpu_torch.ops import streaming_resample as sr
+    from qinfer_tpu_torch.parallel import runs
+    from qinfer_tpu_torch.tomography.bases import EMBEDDED_SWEEPS
+
+    legs = [{line["run"]: line for line in res.get("runs", [])}
+            for res in results]
+    back = [{line["run"]: line for line in res.get("runs", [])}
+            for res in resumed]
+    for name, *_ in _leg_specs():
+        lines = [leg.get(name) for leg in legs]
+        require(all(lines) and all(_replicated(a) == _replicated(lines[0])
+                                   for a in lines),
+                f"processes {name}: the ranks' replicated results differ")
+    trials = [res.get("trials", [None])[0] for res in results]
+    require(all(trials) and all(_replicated(t) == _replicated(trials[0])
+                                for t in trials),
+            "processes trials: the ranks' replicated results differ")
+
+    # (d) the resample-move recipe
+    n, steps, save_at = PROCESS_FLAGSHIP
+    ranks = [leg["flagship"] for leg in legs]
+    a, o = ranks[0], one["flagship"]
+    first, _, rel = _held_alike("flagship", ranks, o)
+    require(first is not None, "processes flagship: no resample")
+    for r in range(PROCESSES):
+        x, y = ranks[r], back[r].get("flagship", {})
+        same = (y.get("resumed")
+                and [y["local_w"][0][0], y["local_x"][0][0]]
+                == [x["local_at_save"][0][0], x["local_at_save"][1][0]]
+                and all(y[k][0] == x[k][0][save_at:]
+                        for k in ("local_w", "local_x"))
+                and all(y[k] == x[k][save_at:]
+                        for k in ("norm", "est", "resamples", "generator"))
+                and all(y[k] == x[k] for k in ("local_final", "final_est",
+                                               "resample_count",
+                                               "log_scale")))
+        require(same, f"processes flagship rank {r}: the run resumed from "
+                      f"step {save_at} on fresh ranks differs from the "
+                      f"uninterrupted one")
+    require(loaded == [[ranks[r]["local_at_save"][i][0]
+                        for r in range(PROCESSES)] for i in range(2)],
+            "processes flagship: the archive loaded into one process differs "
+            "from the ranks' blocks")
+    for rec, where in ((a, "ranks"), (o, "one process")):
+        acc = sum(rec["acceptance"]) / max(len(rec["acceptance"]), 1)
+        require(rec["fidelity"] > rec["prior_fidelity"]
+                and PROCESS_ACCEPTANCE[0] <= acc <= PROCESS_ACCEPTANCE[1]
+                and len(rec["acceptance"]) == rec["resample_count"] >= 1,
+                f"processes flagship ({where}): fidelity {rec['fidelity']} "
+                f"(prior mean's {rec['prior_fidelity']}), acceptance {acc}, "
+                f"{len(rec['acceptance'])} move calls for "
+                f"{rec['resample_count']} resamples")
+    d_fid = abs(a["fidelity"] - o["fidelity"])
+    require(d_fid < PROCESS_FIDELITY_BAR,
+            f"processes flagship: fidelities {a['fidelity']} / "
+            f"{o['fidelity']} differ by {d_fid}")
+    launches = a["local_launches"]
+    for r, rec in enumerate(ranks):
+        got = rec["local_launches"]
+        require(got["streaming_resample_locations"] == rec["resample_count"]
+                and got["jacobi_project_lanes_looped"]
+                == rec["local_projections"] >= 1
+                and got["jacobi_eigh_lanes"] == 1,
+                f"processes flagship rank {r}: launches {got} for "
+                f"{rec['resample_count']} resamples and "
+                f"{rec['local_projections']} projections")
+    say("main", f"processes flagship: {n} particles x {steps} steps, "
+                f"{PROCESSES} ranks against the one-process mesh of "
+                f"{PROCESSES} shards: the first resample at step {first}, "
+                f"the steps through it within rtol {rel:.3g} (the generator "
+                f"and the particles to the bit); fidelity {a['fidelity']:.6f}"
+                f" / {o['fidelity']:.6f} (prior mean "
+                f"{a['prior_fidelity']:.6f},"
+                f" |Δ| {d_fid:.3g}), acceptance "
+                f"{sum(a['acceptance']) / len(a['acceptance']):.4f} / "
+                f"{sum(o['acceptance']) / len(o['acceptance']):.4f}, "
+                f"resamples {a['resample_count']} / {o['resample_count']}; "
+                f"resumed from step {save_at} on fresh ranks equal to the "
+                f"bit, the archive loaded into one process equal to the "
+                f"ranks' blocks; {_walls(a, o)}; launches a rank "
+                f"{launches} on {card}")
+
+    # each rank's K3 and K5 at the recipe's shapes
+    cfg = tb.make_config("process", dev, process_qubits=2)
+    entries = []
+    for r, rank in enumerate(kept):
+        u2, recv_w, recv_x, m_rank, starts_rank, x_rank = (
+            v.to(dev) for v in rank["fill"])
+        rows = recv_x.shape[0] * recv_x.shape[1]
+        m, starts, flat, _ = _replay_batch_fill(
+            torch, dev, u2, recv_w, recv_x, f"processes flagship rank {r}")
+        plain = sr.streaming_resample_locations_plain(m_rank, starts_rank,
+                                                      flat)
+        require(torch.equal(m, m_rank) and torch.equal(starts, starts_rank)
+                and torch.equal(plain.view(torch.int32), x_rank.reshape(
+                    rows, -1).view(torch.int32)),
+                f"processes flagship rank {r}: the rank's K3 fill differs "
+                f"from the plain twin on its counts")
+        mats = cfg.model._embedded_states(rank["k5"].to(dev))
+        got = jac.jacobi_project_lanes_looped(mats, sweeps=EMBEDDED_SWEEPS,
+                                              trace=2.0, eps=EPS)
+        want = jac.jacobi_project_lanes_looped_plain(
+            mats, sweeps=EMBEDDED_SWEEPS, trace=2.0, eps=EPS)
+        torch.cuda.synchronize()
+        require(rank["projected"] and torch.equal(got, want),
+                f"processes flagship rank {r}: K5 on the rank's first "
+                f"strict projection differs from the plain version by "
+                f"{float((got - want).abs().max())}")
+        say("main", f"processes flagship rank {r}: its first fill's K3 "
+                    f"launch over {recv_x.shape[0]} x {recv_x.shape[1]} rows "
+                    f"(d = {recv_x.shape[2]}) and K5 on its first strict "
+                    f"projection {tuple(mats.shape)} equal to the plain "
+                    f"versions to the bit")
+        if r == 0:
+            d = flat.shape[1]
+            fill_bytes = k3_bytes(m, d)
+            entries = [
+                timed(f"streaming_resample_locations n={rows}, d={d} "
+                      f"(processes: rank 0's first fill of the resample-move"
+                      f" leg, one launch over its 1 x {rows} rows, its "
+                      f"inputs in device memory)",
+                      from_device_memory(sr.streaming_resample_locations,
+                                         (m, starts, flat), fill_bytes),
+                      from_device_memory(
+                          sr.streaming_resample_locations_plain,
+                          (m, starts, flat), fill_bytes),
+                      library=from_device_memory(
+                          lambda m, f, k=rows: torch.repeat_interleave(
+                              f, m, dim=0, output_size=k),
+                          (m, flat), fill_bytes),
+                      bound_at=k3_bound(m, d),
+                      attach=dict(kernel="streaming_resample_locations",
+                                  launches=launches[
+                                      "streaming_resample_locations"])),
+                timed(f"jacobi_project_lanes_looped {tuple(mats.shape)} "
+                      f"(processes: rank 0's first strict projection)",
+                      lambda a=mats: jac.jacobi_project_lanes_looped(
+                          a, sweeps=EMBEDDED_SWEEPS, trace=2.0, eps=EPS),
+                      lambda a=mats: jac.jacobi_project_lanes_looped_plain(
+                          a, sweeps=EMBEDDED_SWEEPS, trace=2.0, eps=EPS),
+                      no_library="no one PyTorch call projects onto the PSD "
+                                 "cone",
+                      bound_at=jacobi_bound(mats.shape[0], 32,
+                                            EMBEDDED_SWEEPS, True),
+                      attach=dict(kernel="jacobi_project_lanes_looped",
+                                  launches=launches[
+                                      "jacobi_project_lanes_looped"]))]
+
+    # (e) the drift walk, its waste-free static model, ALE: alike while
+    # the PGH designs agree and before the first resample, then by law
+    for name in ("drift", "drift_waste_free", "ale"):
+        ranks = [leg[name] for leg in legs]
+        a, o = ranks[0], one[name]
+        first, alike, rel = _held_alike(name, ranks, o)
+        sd = runs.combined_sd(a, o)
+        d_est = [abs(x - y) for x, y in zip(a["final_est"], o["final_est"])]
+        require(max(a["z"]) <= PROCESS_Z_BAR and max(o["z"]) <= PROCESS_Z_BAR
+                and all(d < 5 * s for d, s in zip(d_est, sd))
+                and a["resample_count"] >= 1 and a["finite"],
+                f"processes {name}: |mean - truth| / sd {a['z']} / {o['z']},"
+                f" final estimates {a['final_est']} / {o['final_est']} "
+                f"({sd} combined sd), {a['resample_count']} resamples")
+        if name == "ale":
+            upto = alike if first is None else min(alike, first + 1)
+            require(a["rounds"][:upto] == o["rounds"][:upto],
+                    f"processes ale: the rounds differ before step {upto}")
+        say("main", f"processes {name}: {a['particles']} particles x "
+                    f"{len(a['norm'])} steps, {PROCESSES} ranks against the "
+                    f"one-process mesh: the designs part at step {alike}, "
+                    f"the first resample at step {first}, the steps before "
+                    f"both within rtol {rel:.3g}; |mean - truth| / sd "
+                    f"{max(a['z']):.3f} / {max(o['z']):.3f}, estimates "
+                    f"{a['final_est'][0]:.6f} / {o['final_est'][0]:.6f}, "
+                    f"resamples {a['resample_count']} / "
+                    f"{o['resample_count']}; {_walls(a, o)}")
+
+    # (f) the trials
+    t, o = trials[0], one["trials"]
+    count, n_t, steps_t = PROCESS_TRIALS
+    require(t["digests"] == o["digests"]
+            and t["resample_counts"] == o["resample_counts"],
+            "processes trials: the ranks' records differ from the "
+            "one-process trial mesh's")
+    mine = count // PROCESSES
+    for r, line in enumerate(trials):
+        got = line["local_launches"]
+        own = sum(line["resample_counts"][r * mine:(r + 1) * mine])
+        require(got["fused_precession_update"] == mine * steps_t
+                and got["precession_pr0"] == mine * steps_t
+                and got["streaming_resample_locations"] == own,
+                f"processes trials rank {r}: launches {got} for {mine} "
+                f"trials of {steps_t} steps and {own} resamples")
+    say("main", f"processes trials: {count} x {n_t} x {steps_t} on "
+                f"{PROCESSES} ranks equal to the one-process trial mesh to "
+                f"the bit, {t['wall_s']:.4f} s, {t['collective_calls']} "
+                f"collectives; launches on rank 0 "
+                f"{trials[0]['local_launches']}")
+    return launches, trials[0]["local_launches"], entries
 
 
 def run_processes_path(torch, dev, card, config5_mean):
@@ -2228,9 +2640,12 @@ def run_processes_path(torch, dev, card, config5_mean):
     rank's last K1 call of its ring run (n = 2²¹) against the plain
     version (:func:`hold_k1`), and its first fill, replayed on the rank
     (one K3 launch over 1 x 2²¹ rows), against the plain twin to the bit,
-    the rank's output and the parent's replay alike.
-    Returns ``(each kernel's launches on rank 0's ring run, timing
-    entries of K1 and K3 at rank 0's shapes)``."""
+    the rank's output and the parent's replay alike. (d)-(f) The rest of
+    the engine on the ranks, in the same launch, and the resample-move
+    leg resumed in a second one (:func:`_check_process_legs`).
+    Returns ``(each kernel's launches on rank 0's ring run, on its
+    resample-move leg and on its trials, timing entries of K1, K3 and K5
+    at rank 0's shapes)``."""
     import tempfile
 
     from qinfer_tpu_torch import (AcceleratedPrecessionModel, ParticleMesh,
@@ -2260,15 +2675,27 @@ def run_processes_path(torch, dev, card, config5_mean):
                           resampler=DistributedLiuWestResampler(mesh, a=0.98),
                           mesh=mesh, record=True)
     del one_c5["state"]
+    one_legs = _one_process_legs(torch, dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as record:
-        results = _run_ranks(torch, "precession,config5", "--particles", n,
-                             "--steps", steps, "--seed", PARALLEL_SEED,
-                             "--config5", f"{cn},{csteps},{ccand}",
-                             "--record", record)
+        results = _run_ranks(torch, "precession,config5,runs,trials",
+                             "--particles", n, "--steps", steps, "--seed",
+                             PARALLEL_SEED, "--config5",
+                             f"{cn},{csteps},{ccand}", "--record", record,
+                             "--runs", _runs_arg(_leg_specs()),
+                             "--checkpoint", record, "--trials",
+                             ",".join(map(str, PROCESS_TRIALS)))
         kept = [torch.load(os.path.join(record, f"rank{r}.pt"))
                 for r in range(PROCESSES)]
+        kept_legs = [torch.load(os.path.join(record,
+                                             f"flagship_rank{r}.pt"))
+                     for r in range(PROCESSES)]
+        resumed = _run_ranks(torch, "runs", "--runs",
+                             _runs_arg(_leg_specs()[:1]), "--checkpoint",
+                             record, "--resume")
+        loaded = _loaded_checksums(torch, dev,
+                                   os.path.join(record, "flagship"))
     for task in ("precession", "config5"):
         lines = [res.get(task, []) for res in results]
         require(all(len(ln) == (2 if task == "precession" else 1)
@@ -2435,35 +2862,46 @@ def run_processes_path(torch, dev, card, config5_mean):
         if r == 0:
             k1 = (omega, w, t, outcome, k1_err)
             k3 = (m, starts, flat, rows)
+    legs_launches, trials_launches, leg_entries = _check_process_legs(
+        torch, dev, card, results, resumed, one_legs, kept_legs, loaded)
     say("main", f"processes phase: {time.perf_counter() - t_phase:.1f} s "
                 "with its set-up")
     launches = ring["local_launches"]
     omega, w, t, outcome, k1_err = k1
     nk = omega.shape[0]
+    k1_args, k1_bytes = (omega, w, t, outcome), 12 * nk
     k1_entry = timed(
         f"fused_precession_update n={nk} (processes: rank 0's last step of "
-        f"the ring run, t = {t:.6g}, outcome {outcome})",
-        lambda: prec.fused_precession_update(omega, w, t, outcome,
-                                             normalize=False),
-        lambda: prec.fused_precession_update_plain(omega, w, t, outcome,
-                                                   normalize=False),
+        f"the ring run, t = {t:.6g}, outcome {outcome}, its inputs in "
+        f"device memory)",
+        from_device_memory(lambda *a: prec.fused_precession_update(
+            *a, normalize=False), k1_args, k1_bytes),
+        from_device_memory(lambda *a: prec.fused_precession_update_plain(
+            *a, normalize=False), k1_args, k1_bytes),
         no_library="no one PyTorch call fuses the reweight and its sums",
-        bound_at=bound(12 * nk, 10 * nk),
+        bound_at=bound(k1_bytes, 10 * nk),
         attach=dict(kernel="fused_precession_update",
                     launches=launches["fused_precession_update"],
                     max_abs_err=k1_err))
     m, starts, flat, rows = k3
+    fill_bytes = k3_bytes(m, 1)
     k3_entry = timed(
         f"streaming_resample_locations n={rows}, d=1 (processes: rank 0's "
-        f"first fill, one launch over its 1 x {rows} rows)",
-        lambda: sr.streaming_resample_locations(m, starts, flat),
-        lambda: sr.streaming_resample_locations_plain(m, starts, flat),
-        library=lambda: torch.repeat_interleave(flat, m, dim=0,
-                                                output_size=rows),
-        bound_at=bound(4 * rows + 8 * rows, 0),
+        f"first fill, one launch over its 1 x {rows} rows, its inputs in "
+        f"device memory)",
+        from_device_memory(sr.streaming_resample_locations,
+                           (m, starts, flat), fill_bytes),
+        from_device_memory(sr.streaming_resample_locations_plain,
+                           (m, starts, flat), fill_bytes),
+        library=from_device_memory(
+            lambda m, f: torch.repeat_interleave(f, m, dim=0,
+                                                 output_size=rows),
+            (m, flat), fill_bytes),
+        bound_at=k3_bound(m, 1),
         attach=dict(kernel="streaming_resample_locations",
                     launches=launches["streaming_resample_locations"]))
-    return launches, [k1_entry, k3_entry]
+    return (launches, legs_launches, trials_launches,
+            [k1_entry, k3_entry] + leg_entries)
 
 
 def main(argv):
@@ -2540,8 +2978,8 @@ def main(argv):
     parallel_launches, flagship_launches, parallel_entry = run_parallel_path(
         torch, dev, card, config5_state, config5_mean)
     extra.append(parallel_entry)
-    process_launches, process_entries = run_processes_path(
-        torch, dev, card, config5_mean)
+    (process_launches, process_legs_launches, process_trials_launches,
+     process_entries) = run_processes_path(torch, dev, card, config5_mean)
     extra.extend(process_entries)
     extra.append(late_step_k1(torch, dev)[0])
     results = time_kernels(timers + jac_timers, extra + jac_extra)
@@ -2565,8 +3003,12 @@ def main(argv):
         # for the kernels run (a) does not launch
         r["launches_parallel"] = (parallel_launches[r["name"]]
                                   or flagship_launches[r["name"]])
-        # rank 0 of the process phase's ring run
+        # rank 0 of the process phase's ring run, of its resample-move leg
+        # and of its trials
         r["launches_processes"] = process_launches[r["name"]]
+        r["launches_processes_resample_move"] = process_legs_launches[
+            r["name"]]
+        r["launches_processes_trials"] = process_trials_launches[r["name"]]
     print(json.dumps({"kernels": results}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,12 @@
   then runs after every reweighting (``is_time_dependent``).
 * A model whose likelihood is a Monte-Carlo estimate sets
   ``wants_likelihood_key = True``; the engine then passes
-  ``generator=`` (a :class:`torch.Generator`) to every ``likelihood``
-  call it makes, so the noise is fresh on every call.
+  ``generator=`` to every ``likelihood`` call it makes, so the noise is
+  fresh on every call: a :class:`torch.Generator`, or, for an ensemble
+  sharded over a mesh, the shards' own streams
+  (:class:`~qinfer_tpu_torch.parallel.mesh.ParticleStreams`). Such a
+  model draws its per-particle noise through :func:`per_particle`, which
+  takes either.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from .domains import IntegerDomain
 
 __all__ = [
     "keyed_kwargs",
+    "per_particle",
     "Simulatable",
     "Model",
     "FiniteOutcomeModel",
@@ -50,6 +55,17 @@ def keyed_kwargs(model, generator):
                                          False):
         return {"generator": generator}
     return {}
+
+
+def per_particle(generator, fn, *tensors, dim=0, out_dim=None):
+    """A per-particle draw ``fn(g, *tensors)`` from ``generator``: a
+    :class:`torch.Generator` draws over the whole tensors; the streams of
+    a sharded ensemble (``ParticleStreams``) draw each shard's block from
+    its own generator, the blocks split along ``dim`` and joined along
+    ``out_dim`` (default ``dim``), the particle axes."""
+    if isinstance(generator, torch.Generator):
+        return fn(generator, *tensors)
+    return generator.map(fn, *tensors, dim=dim, out_dim=out_dim)
 
 
 def atleast_2d(x):

@@ -6,7 +6,10 @@ hedged binomial estimators ``binom_est_p`` and ``binom_est_error``.
 The JAX package runs the adaptive sample budget inside ``jit`` as a
 ``lax.while_loop``; here it is a host loop over chunks of ``samp_step``
 simulations with one device→host copy a round (the worst cell's standard
-error). ``rounds`` records the rounds of each call.
+error). The loop stops on the worst cell of the whole ensemble, as the
+JAX loop over a sharded array does: on a mesh across processes that
+worst cell is reduced over the ranks, one collective a round.
+``rounds`` records the rounds of each call.
 """
 
 from __future__ import annotations
@@ -17,8 +20,10 @@ import warnings
 import torch
 
 from ._exceptions import ApproximationWarning
-from .abstract_model import FiniteOutcomeModel, atleast_2d, n_expparams
+from .abstract_model import (FiniteOutcomeModel, atleast_2d, n_expparams,
+                             per_particle)
 from .derived_models import _device_generator
+from .parallel.mesh import LOCAL
 
 __all__ = ["ALEApproximateModel", "binom_est_p", "binom_est_error"]
 
@@ -143,12 +148,19 @@ class ALEApproximateModel(FiniteOutcomeModel):
         outcomes = outcomes.reshape(-1)
         if generator is None:
             generator = _device_generator(self, modelparams.device, 0)
+        # a sharded ensemble's streams carry its reducer: every shard runs
+        # the rounds the whole ensemble needs
+        reducer = getattr(generator, "reducer", LOCAL)
 
         def chunk_counts(n_rep):
-            sims = self.simulator.simulate_experiment(
-                generator, modelparams, eps, repeat=n_rep)
-            if n_rep == 1:  # repeat == 1 comes back squeezed
-                sims = sims[None]
+            def simulate(g, x):
+                sims = self.simulator.simulate_experiment(g, x, eps,
+                                                          repeat=n_rep)
+                # repeat == 1 comes back squeezed
+                return sims[None] if n_rep == 1 else sims
+
+            sims = per_particle(generator, simulate, modelparams, dim=0,
+                                out_dim=1)
             return torch.sum(sims[None] == outcomes[:, None, None, None],
                              dim=1, dtype=torch.int32).to(torch.float32)
 
@@ -170,9 +182,11 @@ class ALEApproximateModel(FiniteOutcomeModel):
                 continue
             n = i * step
             p = binom_est_p(counts, n, self.adapt_hedge)
-            # the round's one device→host copy
-            if float(torch.max(binom_est_error(p, n, self.adapt_hedge))) \
-                    <= self.error_tol:
+            # the round's one device→host copy; the worst cell of the whole
+            # ensemble, as the JAX package's loop over a sharded array
+            worst = reducer.max(torch.max(binom_est_error(
+                p, n, self.adapt_hedge)))
+            if float(worst) <= self.error_tol:
                 break
         self.rounds.append(i)
         return binom_est_p(counts, i * step, self.est_hedge)

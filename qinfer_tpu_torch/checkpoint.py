@@ -12,9 +12,22 @@ for. A restored updater therefore continues the saved run draw for draw.
 A generator's state fits only a generator of the same device type (a
 CPU Mersenne twister against a CUDA Philox counter), so loading a
 checkpoint into an updater on another device type raises ``ValueError``.
+
+An ensemble sharded across processes (the counterpart of the JAX
+package's multi-host orbax checkpoint) is saved as one archive a rank,
+``<path>.rank<r>-of-<D>.npz`` with the rank's weights and locations, and
+a manifest at ``<path>.npz`` written by rank 0 with everything that is
+the same on every rank (the records, the generators' states, the
+adapted scale, the pool) and the layout, D and n. It restores on a
+process mesh of the same D, rank by rank, or into one process,
+unsharded or on a one-process mesh of any D that divides n, from the
+blocks joined in shard order (the JAX package restores on any device
+topology).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -122,13 +135,29 @@ def _restore_rejuvenation_record(updater, arrays):
             updater._n_record = n_rec
 
 
-def _refuse_across_processes(updater, what):
+#: the ensemble's own rows, which each rank of a mesh across processes
+#: saves in its block archive
+_BLOCK_FIELDS = ("weights", "locations")
+
+
+def _process_mesh(updater):
+    """The mesh of an updater sharded across processes, else ``None``."""
     sharding = getattr(updater, "sharding", None)
     if sharding is not None and sharding.mesh.spans_processes:
-        raise NotImplementedError(
-            f"cannot {what} a checkpoint of an ensemble sharded across "
-            f"processes: each rank holds its own block, and one rank's "
-            f"block is not the ensemble (ROADMAP queue 1)")
+        return sharding.mesh
+    return None
+
+
+def _base(path):
+    """The archive's path without the ``.npz`` that ``np.savez`` adds."""
+    path = os.fspath(path)
+    return path[:-4] if path.endswith(".npz") else path
+
+
+def block_path(path, rank, n_shards):
+    """The archive of rank ``rank``'s block of a checkpoint saved on a mesh
+    of ``n_shards`` processes at ``path``."""
+    return f"{_base(path)}.rank{rank}-of-{n_shards}.npz"
 
 
 def save_updater(path, updater):
@@ -136,10 +165,10 @@ def save_updater(path, updater):
     rejuvenation record and the generators' states) to one ``.npz`` file
     (``np.savez`` appends the extension if missing). Outcomes keep their
     dtype, so a restored record feeds the moves exactly what the saved one
-    did. An updater sharded across processes raises
-    :class:`NotImplementedError`: its rank holds one block, not the
-    ensemble."""
-    _refuse_across_processes(updater, "save")
+    did. On a mesh across processes every rank calls it with the same
+    ``path``: each writes its block (:func:`block_path`), rank 0 the
+    manifest at ``path``, and the ranks wait for each other before
+    returning (see the module)."""
     arrays = state_to_arrays(updater.state)
     arrays.update(_rejuvenation_record_arrays(updater))
     arrays.update(_generator_arrays("generator", updater.generator))
@@ -156,7 +185,52 @@ def save_updater(path, updater):
         arrays["__data_record"] = np.zeros((0,), dtype=np.float64)
     arrays["__normalization_record"] = np.asarray(
         updater.normalization_record, dtype=np.float64)
-    np.savez(path, **arrays)
+    mesh = _process_mesh(updater)
+    if mesh is None:
+        np.savez(path, **arrays)
+        return
+    np.savez(block_path(path, mesh.rank, mesh.n_devices),
+             **{k: arrays.pop(k) for k in _BLOCK_FIELDS})
+    if mesh.rank == 0:
+        arrays["__process_shards"] = np.int64(mesh.n_devices)
+        arrays["__n_particles"] = np.int64(updater.n_particles)
+        np.savez(_base(path) + ".npz", **arrays)
+    mesh.barrier()
+
+
+def _ensemble_rows(loaded, path, updater):
+    """Put the ensemble's rows into a manifest's arrays: this rank's block
+    on a process mesh of the manifest's D, every block in shard order
+    in one process. Returns the ensemble's size. A manifest the updater
+    cannot take raises ``ValueError`` naming the field."""
+    shards = int(loaded.pop("__process_shards"))
+    n = int(loaded.pop("__n_particles"))
+    mesh = _process_mesh(updater)
+    if mesh is not None:
+        if shards != mesh.n_devices:
+            raise ValueError(
+                f"the checkpoint's process_shards is {shards} and this "
+                f"mesh spans {mesh.n_devices} processes: a checkpoint "
+                f"saved across processes restores on a process mesh of the "
+                f"same size, or into one process")
+        ranks = [mesh.rank]
+    else:
+        ranks = range(shards)
+    paths = [block_path(path, r, shards) for r in ranks]
+    missing = [p for p in paths if not os.path.exists(p)]
+    if missing:
+        raise ValueError(
+            f"the checkpoint's process_shards is {shards}, but its block "
+            f"{missing[0]} is missing")
+    blocks = [dict(np.load(p)) for p in paths]
+    for k in _BLOCK_FIELDS:
+        loaded[k] = np.concatenate([b[k] for b in blocks])
+    rows = loaded["weights"].shape[0]
+    if rows * shards != n * len(ranks):
+        raise ValueError(
+            f"the checkpoint's n_particles is {n}, but its blocks hold "
+            f"{rows} rows for {len(ranks)} of {shards} shards")
+    return n
 
 
 def load_updater(path, updater):
@@ -164,9 +238,10 @@ def load_updater(path, updater):
     (which supplies the model, prior, resampler and options); every tensor
     lands on the updater's device, a sharded updater keeps its sharding
     (the archive's ensemble must split into its mesh's shards), and the
-    pool's index is rebuilt. Returns the updater. An updater sharded
-    across processes raises :class:`NotImplementedError`."""
-    _refuse_across_processes(updater, "load")
+    pool's index is rebuilt. Returns the updater. A checkpoint saved
+    across processes restores on a process mesh of its size (each rank
+    reads its block) or into one process (see the module); on a process
+    mesh every rank calls it with the same ``path``."""
     try:
         loaded = dict(np.load(path))
     except FileNotFoundError:
@@ -174,9 +249,14 @@ def load_updater(path, updater):
         loaded = dict(np.load(str(path) + ".npz"))
     data_record = loaded.pop("__data_record")
     norm_record = loaded.pop("__normalization_record")
-    # first, so that an ensemble the mesh refuses leaves the updater as it was
+    n = None
+    if "__process_shards" in loaded:
+        n = _ensemble_rows(loaded, path, updater)
+    # first, so that an ensemble the mesh refuses leaves the updater as it
+    # was; a rank's own block is placed as it is
+    per_rank = n is not None and _process_mesh(updater) is not None
     state = arrays_to_state(loaded, device=updater.device,
-                            sharding=updater.sharding)
+                            sharding=None if per_rank else updater.sharding)
     _restore_rejuvenation_record(updater, loaded)
     _restore_generator(loaded, "generator", updater.generator)
     if "__design_generator_state" in loaded:
@@ -188,5 +268,9 @@ def load_updater(path, updater):
     updater.state = state
     updater.data_record = list(data_record)
     updater.normalization_record = [float(x) for x in norm_record]
-    updater._n_particles = int(updater.state.weights.shape[0])
+    if n is None:
+        n = int(updater.state.weights.shape[0])
+        if _process_mesh(updater) is not None:
+            n *= updater.sharding.mesh.n_devices
+    updater._n_particles = n
     return updater

@@ -19,7 +19,7 @@ from math import comb
 import numpy as np
 import torch
 
-from .abstract_model import Model, atleast_2d, n_expparams
+from .abstract_model import Model, atleast_2d, n_expparams, per_particle
 from .config import EPS
 from .domains import IntegerDomain, MultinomialDomain, _compositions
 from .utils import log_binomial_pdf, multinomial_pdf
@@ -222,8 +222,9 @@ class PoisonedModel(DerivedModel):
                                              expparams)
         if generator is None:
             generator = _device_generator(self, L.device, self.seed)
-        noise = torch.randn(L.shape, generator=generator, device=L.device,
-                            dtype=L.dtype) * self.noise_sigma(L)
+        noise = per_particle(generator, lambda g, block: torch.randn(
+            block.shape, generator=g, device=block.device,
+            dtype=block.dtype), L, dim=1) * self.noise_sigma(L)
         return torch.clamp(L + noise, 0.0, 1.0)
 
 

@@ -8,8 +8,9 @@ collectives act on the stacked view of the shards a process holds; the
 engine reduces its sums over particles through the mesh. The two-level
 :class:`DistributedLiuWestResampler` resamples shard by shard with the
 mesh's collectives, :class:`DirectViewParallelizedModel` spreads a
-likelihood over a pool of engines, as the reference package does, and
-:mod:`.worker` is the entry point of one rank.
+likelihood over a pool of engines, as the reference package does,
+:mod:`.worker` is the entry point of one rank, and :mod:`.runs` holds the
+runs that a mesh across processes is held to against a one-process mesh.
 """
 
 from .mesh import (

@@ -42,12 +42,20 @@ A mesh lies in one of two layouts:
   two cards, and NCCL refuses two ranks on one card.
   ``collective_seconds`` and ``collective_calls`` count the wall time and
   number of the group's collectives, staging included.
+
+In either layout the engine draws its per-particle values (a keyed
+likelihood's noise, a time-dependent model's step, the moves' proposals
+and uniforms) from each shard's own stream (:class:`ParticleStreams`,
+seeded by the replicated generator's state and the shard index), so a
+mesh across processes draws what a one-process mesh of the same D draws;
+an unsharded ensemble draws from its generator as it always did.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import time
 
 import torch
@@ -56,6 +64,7 @@ import torch.distributed as dist
 from ..config import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["ParticleMesh", "MeshSharding", "Reducer", "LOCAL",
+           "ParticleStreams", "particle_streams", "shard_generators",
            "make_particle_sharding", "initialize_multihost", "placement",
            "reducer_of", "shard_state"]
 
@@ -311,6 +320,13 @@ class ParticleMesh:
                 req.wait()
             return self._in(recv)[None]
 
+    def barrier(self):
+        """Wait until every rank has reached this point (a no-op in one
+        process)."""
+        if self.spans_processes:
+            with self._collective():
+                dist.barrier()
+
     def axis_index(self, device=None):
         """The local shards' indices on the mesh axis: ``arange(D)`` in one
         process, ``[rank]`` on a rank."""
@@ -353,6 +369,14 @@ class Reducer:
             return bool(flags.all())
         return not bool(self.sum((~flags).sum().to(torch.int32)))
 
+    def gather(self, local):
+        """The whole ensemble's tensor from this process's rows of it
+        (particle axis first): the rows themselves, or every rank's block
+        in mesh order (one ``all_gather``)."""
+        if self.mesh is None:
+            return local
+        return self.mesh.unshard(self.mesh.all_gather(local[None]))
+
 
 #: the reducer of an unsharded ensemble, or of a mesh in one process
 LOCAL = Reducer()
@@ -364,6 +388,67 @@ def reducer_of(sharding):
     if sharding is not None and sharding.mesh.spans_processes:
         return Reducer(sharding.mesh)
     return LOCAL
+
+
+def shard_generators(generator, mesh, device):
+    """One generator for each of this process's shards: shard s's is
+    seeded from ``generator``'s state (the same on every shard: it draws
+    only replicated values) and s, as the JAX package folds the shard
+    index into its key, so shard s draws the same values whichever
+    process holds it. Then ``generator`` draws one value, so that the next
+    call seeds other streams. Reading the state copies nothing from the
+    card."""
+    state = generator.get_state().numpy().tobytes()
+    gens = []
+    for s in mesh.shard_indices:
+        word = hashlib.blake2b(state + s.to_bytes(8, "little"),
+                               digest_size=8).digest()
+        g = torch.Generator(device=device)
+        g.manual_seed(int.from_bytes(word, "little") >> 1)
+        gens.append(g)
+    torch.rand((), generator=generator, device=device)
+    return gens
+
+
+class ParticleStreams:
+    """The per-particle random streams of an ensemble sharded over a
+    mesh: one generator for each shard this process holds
+    (:func:`shard_generators`), so a per-particle draw of shard s is the
+    same whichever process holds it, and a mesh across processes draws
+    what a one-process mesh of the same D draws. The engine's
+    per-particle draws (a keyed likelihood's noise, a time-dependent
+    model's step, the moves' proposals and uniforms) go through
+    :meth:`map`; replicated draws stay on the caller's generator.
+
+    :attr reducer: the :class:`Reducer` of the ensemble's sums (a keyed
+        likelihood's global stopping rule reads it).
+    """
+
+    def __init__(self, generator, mesh):
+        self.mesh = mesh
+        self.generators = shard_generators(generator, mesh, generator.device)
+        self.reducer = reducer_of(mesh.particle_sharding)
+
+    def map(self, fn, *tensors, dim=0, out_dim=None):
+        """``fn(g_s, *blocks_s)`` for each local shard s, on its blocks of
+        ``tensors`` (each split into L equal blocks along ``dim``, the
+        particle axis), concatenated in shard order along ``out_dim``
+        (default ``dim``), the particle axis of ``fn``'s result."""
+        L = len(self.generators)
+        if L == 1:
+            return fn(self.generators[0], *tensors)
+        blocks = [t.chunk(L, dim) for t in tensors]
+        return torch.cat([fn(g, *(b[s] for b in blocks))
+                          for s, g in enumerate(self.generators)],
+                         dim if out_dim is None else out_dim)
+
+
+def particle_streams(generator, mesh):
+    """Where an ensemble's per-particle draws come from: ``generator``
+    itself for an unsharded ensemble (``mesh`` None), so its bits do not
+    change; else fresh :class:`ParticleStreams` of the mesh's local
+    shards, seeded from ``generator`` (which draws one value)."""
+    return generator if mesh is None else ParticleStreams(generator, mesh)
 
 
 def make_particle_sharding(devices=None, axis_name="particles"):

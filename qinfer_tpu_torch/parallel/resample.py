@@ -34,7 +34,6 @@ shard a rank) run the same lines.
 
 from __future__ import annotations
 
-import hashlib
 import math
 
 import torch
@@ -43,7 +42,7 @@ from ..config import EPS
 from ..resamplers import (Resampler, counting_locations_batch_from_u,
                           propose_valid, shrinkage_factor)
 from ..utils import cumsum_last
-from .mesh import reducer_of
+from .mesh import reducer_of, shard_generators
 
 __all__ = ["DistributedLiuWestResampler", "shard_systematic_ancestors",
            "butterfly_exchange_schedule", "exchange_blocks",
@@ -168,23 +167,6 @@ def exchange_blocks(mesh, u1, w, x, exchange="ring"):
         recv_x = torch.where(take[:, None, None], mesh.ppermute(x, k),
                              recv_x)
     return recv_w, recv_x
-
-
-def shard_generators(generator, mesh, device):
-    """One generator for each of this process's shards: shard s's is
-    seeded from ``generator``'s state (the same on every shard: it draws
-    only replicated values) and s, as the JAX package folds the shard
-    index into its key, so shard s draws the same values whichever
-    process holds it. Reading the state copies nothing from the card."""
-    state = generator.get_state().numpy().tobytes()
-    gens = []
-    for s in mesh.shard_indices:
-        word = hashlib.blake2b(state + s.to_bytes(8, "little"),
-                               digest_size=8).digest()
-        g = torch.Generator(device=device)
-        g.manual_seed(int.from_bytes(word, "little") >> 1)
-        gens.append(g)
-    return gens
 
 
 def two_level_fill(mesh, u1, u2, w, x, exchange="ring"):

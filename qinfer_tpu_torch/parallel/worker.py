@@ -49,14 +49,37 @@ Tasks:
   the card: it refuses the CPU), an ``SMCUpdater`` of 10 particles
   a rank (seed 0) after one update of ``SimplePrecessionModel`` at t =
   4.3 with outcome 1: its estimators, design scores, a PGH proposal and
-  five draws; and the refusals (a particle count the world does not
-  divide; a checkpoint).
+  five draws; a checkpoint saved and loaded back; and the refusals (a
+  particle count the world does not divide; an estimator that reads the
+  cloud on the host; a checkpoint of another mesh size).
+* ``runs``: the runs of :mod:`.runs` named by ``--runs
+  NAME:PARTICLES:STEPS[:SAVE_AT],...``, one RESULT line each with its
+  record (:func:`.runs.drive`), its wall, its kernel launches on this
+  rank and its collectives, and the run's own wall and collectives
+  (``local_run_s``, ``run_collective_calls``,
+  ``local_run_collective_s``: those less the record's reads). A run
+  with ``SAVE_AT`` saves its updater after that step to ``--checkpoint
+  DIR``/NAME (one block a rank and a manifest); with ``--resume`` it
+  instead starts from that checkpoint, loaded into an updater of another
+  seed, and runs the steps after it.
+  With ``--record DIR`` the ``flagship`` run writes ``DIR/flagship_
+  rank{R}.pt``: its first resample's fill replayed from the kept
+  generator state and particles (K3's inputs and output, as the
+  ``precession`` task's record) and the particles its first strict
+  projection took (K5's input, embedded by the caller).
+* ``trials``: ``perf_test_scan_batch`` with ``AcceleratedPrecessionModel``
+  at ``--trials T,PARTICLES,STEPS`` (seed ``--seed``) on the trial mesh
+  across the ranks: rank r runs its block of trials, and every rank
+  returns every trial's record; the line holds a SHA-1 of each record
+  tensor's bytes, the estimates and the launches.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
+import shutil
 import sys
 import tempfile
 import time
@@ -65,9 +88,11 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from . import runs
 from .mesh import ParticleMesh, initialize_multihost, reducer_of, shard_state
 
-TASKS = ("jax", "exchange", "precession", "config5", "collectives")
+TASKS = ("jax", "exchange", "precession", "config5", "collectives", "runs",
+         "trials")
 
 
 def _counted():
@@ -302,7 +327,7 @@ def task_config5(mesh, args):
 
 
 def task_collectives(mesh, args):
-    from ..checkpoint import save_updater
+    from ..checkpoint import load_updater, save_updater
     from ..distributions import UniformDistribution
     from ..heuristics import PGH
     from ..smc import SMCUpdater
@@ -351,13 +376,171 @@ def task_collectives(mesh, args):
         "risk": u.bayes_risk(cand).tolist(),
         "pgh_t": float(PGH(u)()["t"][0]),
         "sample": u.sample(5).tolist()}
-    with tempfile.TemporaryDirectory() as tmp:
-        try:
-            save_updater(f"{tmp}/checkpoint", u)
-            out["save"] = "saved"
-        except NotImplementedError as exc:
-            out["save"] = str(exc)
+    try:
+        u.est_credible_region()
+        out["host_estimator"] = "ran"
+    except NotImplementedError as exc:
+        out["host_estimator"] = str(exc)
+    # every rank writes to the same directory (rank 0 picks it)
+    tmp = [tempfile.mkdtemp() if r == 0 else None]
+    torch.distributed.broadcast_object_list(tmp, src=0)
+    path = f"{tmp[0]}/checkpoint"
+    save_updater(path, u)
+    v = SMCUpdater(model, 10 * D, prior, seed=1,
+                   sharding=mesh.particle_sharding)
+    load_updater(path, v)
+    out["reloaded"] = (torch.equal(u.particle_weights, v.particle_weights)
+                       and torch.equal(u.particle_locations,
+                                       v.particle_locations)
+                       and u.n_particles == v.n_particles
+                       and torch.equal(u.generator.get_state(),
+                                       v.generator.get_state()))
+    manifest = dict(np.load(path + ".npz"))
+    mesh.barrier()
+    if r == 0:
+        np.savez(f"{tmp[0]}/other.npz", **dict(
+            manifest, __process_shards=np.int64(D - 1)))
+    mesh.barrier()
+    try:
+        load_updater(f"{tmp[0]}/other", v)
+        out["other_size"] = "loaded"
+    except ValueError as exc:
+        out["other_size"] = str(exc)
+    mesh.barrier()
+    if r == 0:
+        shutil.rmtree(tmp[0])
     yield out
+
+
+def _run_specs(text):
+    """``NAME:PARTICLES:STEPS[:SAVE_AT],...`` as tuples."""
+    specs = []
+    for item in filter(None, text.split(",")):
+        name, n, steps, *save = item.split(":")
+        specs.append((name, int(n), int(steps),
+                      int(save[0]) if save else None))
+    return specs
+
+
+def _keep_first_projection(run):
+    """Keep the ``flagship`` run's first resample's inputs (the generator
+    state, the weights, the particles) and the particles its strict
+    projection then takes (K5's input, before the embedding): a dict the
+    run fills."""
+    kept = {}
+    rs, tomo = run.updater.resampler, run.tomography
+    call, canonicalize = rs.call_with_diagnostics, tomo.canonicalize
+
+    def keep_call(model, generator, w, x):
+        if "resample" not in kept:
+            kept["resample"] = (generator.get_state(), w.clone(), x.clone())
+            kept["projections"] = tomo.projection_count
+        return call(model, generator, w, x)
+
+    def keep_canonicalize(x):
+        if "resample" in kept and "k5" not in kept:
+            kept["k5"] = x.clone()
+            out = canonicalize(x)
+            kept["projected"] = tomo.projection_count > kept["projections"]
+            return out
+        return canonicalize(x)
+
+    rs.call_with_diagnostics = keep_call
+    tomo.canonicalize = keep_canonicalize
+    return kept
+
+
+def _record_flagship(mesh, rs, kept, path):
+    """Write the kept K5 input and the first fill, replayed from the kept
+    generator state (the block exchange, then the fill's one K3 launch),
+    to ``path`` on the host."""
+    from ..resamplers import counting_locations_batch_from_u
+    from .resample import exchange_blocks
+
+    gen_state, w, x = kept["resample"]
+    g = torch.Generator(device=mesh.device)
+    g.set_state(gen_state)
+    u1, u2, wv, xv, _ = rs.fill_inputs(g, w, x)
+    recv_w, recv_x = exchange_blocks(mesh, u1, wv, xv, rs.exchange)
+    x_anc, m, starts = counting_locations_batch_from_u(u2, recv_w, recv_x)
+    torch.save({"k5": kept["k5"].cpu(), "projected": kept["projected"],
+                "fill": tuple(v.cpu() for v in (u2, recv_w, recv_x, m,
+                                                starts, x_anc))}, path)
+
+
+def task_runs(mesh, args):
+    from ..checkpoint import load_updater
+
+    dev = mesh.device
+    for name, n, steps, save_at in _run_specs(args.runs):
+        path = f"{args.checkpoint}/{name}" if save_at is not None else None
+        resume = args.resume and save_at is not None
+        # the launches count the prior's draw (K6 in the flagship's)
+        _zero_counts()
+        run = runs.make_run(mesh, name, n, steps,
+                            seed=runs.SEED + 1 if resume else runs.SEED)
+        kept = (_keep_first_projection(run)
+                if name == "flagship" and args.record else None)
+        mesh.collective_seconds, mesh.collective_calls = 0.0, 0
+        _sync(dev)
+        t0 = time.perf_counter()
+        if resume:
+            load_updater(path, run.updater)
+            rec = runs.drive(mesh, run, steps, start=save_at)
+        else:
+            rec = runs.drive(mesh, run, steps, save_at=save_at, path=path)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        # the run's own: the whole less the record's reads (runs.drive)
+        rec.update(run=name, resumed=resume, steps=steps, wall_s=wall,
+                   local_launches=_counts(),
+                   local_collective_s=mesh.collective_seconds,
+                   collective_calls=mesh.collective_calls,
+                   local_run_s=wall - rec["local_record_s"],
+                   run_collective_calls=(mesh.collective_calls
+                                         - rec["record_collective_calls"]),
+                   local_run_collective_s=(
+                       mesh.collective_seconds
+                       - rec["local_record_collective_s"]))
+        if run.tomography is not None:
+            rec["local_projections"] = run.tomography.projection_count
+        if kept is not None:
+            _record_flagship(mesh, run.updater.resampler, kept,
+                             f"{args.record}/flagship_rank{mesh.rank}.pt")
+        yield rec
+
+
+def trial_digests(record):
+    """A SHA-1 of each record tensor's bytes, by key."""
+    return {k: hashlib.sha1(v.detach().cpu().numpy().tobytes()).hexdigest()
+            for k, v in sorted(record.items())}
+
+
+def task_trials(mesh, args):
+    from ..distributions import UniformDistribution
+    from ..ops.accelerated import AcceleratedPrecessionModel
+    from ..perf_testing import perf_test_scan_batch
+
+    trials, n, steps = args.trials
+    dev = mesh.device
+    tmesh = ParticleMesh.from_process_group(dev, axis_name="trials")
+    _zero_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    runner, seeds = perf_test_scan_batch(
+        AcceleratedPrecessionModel(), n, UniformDistribution([[0.0, 1.0]]),
+        steps, trials, seed=args.seed, mesh=tmesh, return_runner=True,
+        device=dev)
+    record = runner(seeds)
+    _sync(dev)
+    yield {"trials": trials, "particles": n, "steps": steps,
+           "wall_s": time.perf_counter() - t0,
+           "digests": trial_digests(record),
+           "est": record["est"][:, -1, 0].tolist(),
+           "true": record["true_mps"][:, 0].tolist(),
+           "resample_counts": runner.resample_counts,
+           "local_launches": _counts(),
+           "collective_calls": tmesh.collective_calls}
 
 
 def main(argv=None):
@@ -376,10 +559,22 @@ def main(argv=None):
     parser.add_argument("--cpu", action="store_true",
                         help="run on the CPU (default: the card)")
     parser.add_argument("--record", metavar="DIR",
-                        help="where the precession task writes each rank's "
-                             "kernel inputs")
+                        help="where the precession and flagship runs write "
+                             "each rank's kernel inputs")
+    parser.add_argument("--runs", default="",
+                        help="NAME:PARTICLES:STEPS[:SAVE_AT],... of the runs "
+                             "task, NAME from " + ", ".join(runs.RUNS))
+    parser.add_argument("--checkpoint", metavar="DIR",
+                        help="where the runs task saves (and with --resume "
+                             "loads) its checkpoints")
+    parser.add_argument("--resume", action="store_true",
+                        help="start each run with SAVE_AT from its "
+                             "checkpoint")
+    parser.add_argument("--trials", default="8,131072,64",
+                        help="TRIALS,PARTICLES,STEPS of the trials task")
     args = parser.parse_args(argv)
     args.config5 = tuple(int(v) for v in args.config5.split(","))
+    args.trials = tuple(int(v) for v in args.trials.split(","))
     tasks = [t for t in args.tasks.split(",") if t]
     unknown = set(tasks) - set(TASKS)
     if unknown:
@@ -393,7 +588,8 @@ def main(argv=None):
     mesh = ParticleMesh.from_process_group(device)
     run = {"jax": task_jax, "exchange": task_exchange,
            "precession": task_precession, "config5": task_config5,
-           "collectives": task_collectives}
+           "collectives": task_collectives, "runs": task_runs,
+           "trials": task_trials}
     for task in tasks:
         for result in run[task](mesh, args):
             line = {"task": task, "rank": args.rank, "world": args.world,

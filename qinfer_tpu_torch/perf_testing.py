@@ -206,7 +206,7 @@ def perf_test_scan(model, n_particles, prior, n_exp, heuristic_factory=None,
         model, heuristic, updater.resampler, updater.state, true, n_exp,
         generator, updater.generator, updater.resample_thresh,
         updater.zero_weight_thresh, on_zero=updater._handle_zero_weight,
-        reducer=updater._reducer)
+        reducer=updater._reducer, mesh=updater._mesh)
     updater.state = st
     # the step's log-normalization came to the host with its ESS gate
     record["norm"] = torch.exp(torch.tensor(log_norms, dtype=torch.float32,
@@ -218,7 +218,7 @@ def perf_test_scan(model, n_particles, prior, n_exp, heuristic_factory=None,
 def _scan_steps(model, heuristic, resampler, st, true, n_exp, g_run,
                 g_update, resample_thresh, zero_weight_thresh,
                 resample_interval=0, on_zero=None, after_update=None,
-                reducer=LOCAL):
+                reducer=LOCAL, mesh=None):
     """The one-ensemble loop of :func:`perf_test_scan` and of a mesh trial:
     each step a proposal and an outcome at the truth drawn from ``g_run``
     (the truth then moved, for a time-dependent model), the engine's
@@ -240,7 +240,7 @@ def _scan_steps(model, heuristic, resampler, st, true, n_exp, g_run,
             model, resampler, st, outcome, eps, resample_thresh,
             zero_weight_thresh, g_update, check_resample=True,
             resample_gate=resample_interval_gate(idx, resample_interval),
-            reducer=reducer)
+            reducer=reducer, mesh=mesh)
         if was_zero and on_zero is not None:
             on_zero()
         if after_update is not None:
@@ -353,6 +353,21 @@ def _run_sequential(trials, trial_seeds, mesh):
     out = {k: torch.stack([r[k].to(mesh[0]) for r in records])
            for k in records[0]}
     return out, counts
+
+
+def _run_across_processes(trials, trial_seeds, mesh):
+    """The trial mesh across processes: rank r runs block r of the trials
+    (the mesh mode's blocks, in rank order) by :func:`_run_sequential` on
+    its device, then the ranks' records are gathered, so every rank
+    returns every trial's record, stacked in trial order."""
+    block = len(trial_seeds) // mesh.n_devices
+    out, counts = _run_sequential(
+        trials, trial_seeds[mesh.rank * block:(mesh.rank + 1) * block],
+        [mesh.device])
+    out = {k: mesh.unshard(mesh.all_gather(v[None])) for k, v in out.items()}
+    counts = mesh.unshard(mesh.all_gather(torch.tensor(
+        counts, dtype=torch.int64, device=mesh.device)[None]))
+    return out, counts.tolist()
 
 
 def _run_batched(trials, trial_seeds, device):
@@ -485,7 +500,12 @@ def perf_test_scan_batch(model, n_particles, prior, n_exp, n_trials,
       axis ``axis_name`` (``ParticleMesh(devices, axis_name="trials")``;
       its devices may differ or repeat), or a list of devices: equal
       blocks of trials in device order, each trial run alone with real
-      branching; ``n_trials`` must divide by the mesh's size.
+      branching; ``n_trials`` must divide by the mesh's size. On a mesh
+      across processes (``ParticleMesh(axis_name="trials")`` after
+      ``initialize_multihost``) rank r runs block r, seeded as in one
+      process, and every rank returns all the trials' records, gathered:
+      the one-process mesh's result to the bit (the JAX package's
+      ``shard_map`` over a trial mesh).
 
     :param n_mcmc_moves: > 0 runs that many random-walk Metropolis sweeps
         (scale ``mcmc_proposal_scale``) after each resample of a trial,
@@ -524,21 +544,23 @@ def perf_test_scan_batch(model, n_particles, prior, n_exp, n_trials,
                                                         device))
     else:
         if isinstance(mesh, ParticleMesh):
-            if mesh.spans_processes:
-                raise NotImplementedError(
-                    "a trial mesh across processes is not ported (ROADMAP "
-                    "queue 1): give each process its own trials")
             if mesh.axis_name != axis_name:
                 raise ValueError(f"the mesh has axis {mesh.axis_name!r}, "
                                  f"not {axis_name!r}")
-            mesh = mesh.devices
-        mesh = [resolve_device(dv) for dv in mesh]
-        if not mesh or n_trials % len(mesh):
+            size, devices = mesh.n_devices, mesh.devices
+        else:
+            size, devices = len(mesh), mesh
+        if not size or n_trials % size:
             raise ValueError(
-                f"mesh size {len(mesh)} must divide n_trials={n_trials} "
+                f"mesh size {size} must divide n_trials={n_trials} "
                 "(equal trial blocks per device)")
-        runner = TrialRunner(lambda seeds: _run_sequential(trials, seeds,
-                                                           mesh))
+        if isinstance(mesh, ParticleMesh) and mesh.spans_processes:
+            runner = TrialRunner(lambda seeds: _run_across_processes(
+                trials, seeds, mesh))
+        else:
+            devices = [resolve_device(dv) for dv in devices]
+            runner = TrialRunner(lambda seeds: _run_sequential(
+                trials, seeds, devices))
     if return_runner:
         return runner, trial_seeds
     return runner(trial_seeds)

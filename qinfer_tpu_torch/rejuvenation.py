@@ -22,6 +22,19 @@ locations, log-posteriors, acceptances and the adapted scale stay on the
 particles' device, and each call synchronizes with the host once for its
 proposal factor (a Cholesky that may fail), and once more to group a full
 record by outcome.
+
+Every kernel takes ``mesh``: an ensemble sharded over a
+:class:`~qinfer_tpu_torch.parallel.ParticleMesh` draws its per-particle
+values (proposal noise, uniforms, a keyed likelihood's noise) from its
+shards' own streams (:class:`~qinfer_tpu_torch.parallel.mesh.
+ParticleStreams`), so a mesh across processes draws what a one-process
+mesh of the same D draws, while the replicated draws (the waste-free
+offset, a keyed likelihood's common-random-number seed) stay on the
+caller's generator. Across processes each rank moves its own block, and
+the ensemble's moments and each sweep's acceptance are the ranks'
+partials summed over the group; waste-free chains run on the rank that
+owns their seeds' slots. Without a mesh the draws and sums are the
+unsharded ones, bit for bit.
 """
 
 from __future__ import annotations
@@ -30,10 +43,11 @@ import math
 
 import torch
 
-from .abstract_model import keyed_kwargs
+from .abstract_model import keyed_kwargs, per_particle
 from .derived_models import BinomialModel
+from .parallel.mesh import LOCAL, particle_streams, reducer_of
 from .resamplers import counting_multiplicities_from_u
-from .utils import sqrtm_psd
+from .utils import cumsum_last, sqrtm_psd
 
 __all__ = ["resolve_prior_log_pdf", "record_log_likelihood",
            "binomial_record_log_likelihood",
@@ -181,19 +195,39 @@ def binomial_record_log_likelihood(two_outcome_model, locations, succ,
             + torch.log(q0) @ (trials - succ).to(q0.dtype))
 
 
-def _ensemble_chol(locations, weights=None):
+def _reducer(mesh):
+    return LOCAL if mesh is None else reducer_of(mesh.particle_sharding)
+
+
+def _mean(flags, reducer=LOCAL):
+    """The mean of a per-particle flag over the whole ensemble: this
+    process's count and the ranks' summed over a mesh across processes."""
+    f = flags.to(torch.float32)
+    if reducer is LOCAL:
+        return f.mean()
+    return reducer.sum(f.sum()) / (f.shape[0] * reducer.n_shards)
+
+
+def _ensemble_chol(locations, weights=None, reducer=LOCAL):
     """Cholesky factor of the (optionally weighted) ensemble covariance
     plus 1e-10·I, or its PSD square root where the Cholesky fails (a
-    failed pivot or a NaN factor). Synchronizes with the host once."""
+    failed pivot or a NaN factor). Synchronizes with the host once. Over
+    a mesh across processes (``reducer``), the mean's and the outer
+    products' sums are this rank's partials, summed over the ranks; every
+    rank then holds the same covariance and reaches the same verdict."""
     n, d = locations.shape
     if weights is None:
-        mu = locations.mean(dim=0)
+        if reducer is LOCAL:
+            mu = locations.mean(dim=0)
+        else:
+            n = n * reducer.n_shards
+            mu = reducer.sum(locations.sum(dim=0)) / n
         xc = locations - mu[None, :]
-        cov = xc.T @ xc / n
+        cov = reducer.sum(xc.T @ xc) / n
     else:
-        mu = weights @ locations
+        mu = reducer.sum(weights @ locations)
         xc = locations - mu[None, :]
-        cov = (weights[:, None] * xc).T @ xc
+        cov = reducer.sum((weights[:, None] * xc).T @ xc)
     cov = cov + 1e-10 * torch.eye(d, dtype=locations.dtype,
                                   device=locations.device)
     chol, info = torch.linalg.cholesky_ex(cov)
@@ -216,20 +250,22 @@ def _refuse_keyed(model, what):
                          "evaluation)")
 
 
-def _normal(generator, like, shape=None):
-    return torch.randn(like.shape if shape is None else shape,
-                       generator=generator, device=like.device,
-                       dtype=like.dtype)
+def _normal(generator, like):
+    """Standard normals of ``like``'s shape, a row a particle, from a
+    generator or a sharded ensemble's streams."""
+    return per_particle(generator, lambda g, x: torch.randn(
+        x.shape, generator=g, device=x.device, dtype=x.dtype), like)
 
 
-def _log_uniform(generator, n, like):
-    return torch.log(torch.rand((n,), generator=generator,
-                                device=like.device, dtype=like.dtype))
+def _log_uniform(generator, like):
+    """log U[0, 1), one a particle (a row of ``like``)."""
+    return torch.log(per_particle(generator, lambda g, x: torch.rand(
+        (x.shape[0],), generator=g, device=x.device, dtype=x.dtype), like))
 
 
 def mcmc_rejuvenate(model, prior, generator, locations, outcomes,
                     eps_record, mask, n_moves, proposal_scale=2.38,
-                    canonicalize=True):
+                    canonicalize=True, mesh=None):
     """``n_moves`` random-walk Metropolis sweeps of every particle under
     prior × the masked full record's likelihood
     (:func:`record_log_likelihood`).
@@ -243,6 +279,8 @@ def mcmc_rejuvenate(model, prior, generator, locations, outcomes,
     check, so the ensemble stays within the model's tolerance. This is the
     adaptive kernel's random walk with the scale held fixed.
 
+    :param mesh: the mesh of a sharded ensemble (``locations`` this
+        process's rows), see the module.
     :return: ``(new_locations, mean_acceptance)``, the latter a 0-d
         tensor.
     """
@@ -250,12 +288,12 @@ def mcmc_rejuvenate(model, prior, generator, locations, outcomes,
     return _fixed_scale(
         model, prior, generator, locations,
         lambda x, g=None: _grouped_log_likelihood(model, x, groups, g),
-        n_moves, proposal_scale, canonicalize)
+        n_moves, proposal_scale, canonicalize, mesh)
 
 
 def mcmc_rejuvenate_binomial(model, prior, generator, locations, succ,
                              trials, eps_pool, n_moves, proposal_scale=2.38,
-                             canonicalize=True):
+                             canonicalize=True, mesh=None):
     """Sufficient-statistic twin of :func:`mcmc_rejuvenate`: the same
     target up to a constant, each evaluation one (n, E) pool pass.
     ``model`` may be a ``BinomialModel`` (unwrapped for the success
@@ -269,15 +307,15 @@ def mcmc_rejuvenate_binomial(model, prior, generator, locations, succ,
         model, prior, generator, locations,
         lambda x: binomial_record_log_likelihood(two, x, succ, trials,
                                                  eps_pool),
-        n_moves, proposal_scale, canonicalize)
+        n_moves, proposal_scale, canonicalize, mesh)
 
 
 def _fixed_scale(model, prior, generator, locations, record_ll, n_moves,
-                 proposal_scale, canonicalize):
+                 proposal_scale, canonicalize, mesh=None):
     x, acc, _, _ = _mh_moves_adaptive(
         model, prior, generator, locations, record_ll, n_moves,
         initial_log_scale(locations.shape[1], "rwm", proposal_scale), 0,
-        "rwm", 0.0, canonicalize, adapt=False)
+        "rwm", 0.0, canonicalize, adapt=False, mesh=mesh)
     return x, acc
 
 
@@ -296,10 +334,61 @@ def _counting_ancestors(u, weights, n_out):
         output_size=n_out)
 
 
+def _sharded_seeds(u, weights, locations, n_seeds, mesh):
+    """The waste-free seeds of this process's chains on ``mesh``: the
+    ``n_seeds`` = M systematic ancestors of the whole ensemble at offset
+    ``u``, each shard counting its own particles' slots from its offset in
+    the global CDF (the exclusive prefix of the shards' weight totals, all
+    gathered), so the slots of all shards are exactly M; the seeds,
+    gathered in global slot order; and this process's shards' chains, M/D
+    a shard, shard s running slots ``[s·M/D, (s+1)·M/D)``: (L·M/D, d)."""
+    D, M = mesh.n_devices, n_seeds
+    w = mesh.shard(weights)
+    x = mesh.shard(locations)
+    L, k, d = x.shape
+    dev = x.device
+    totals = mesh.all_gather(w.sum(dim=1))
+    ends = torch.cumsum(totals, 0)
+    W = torch.clamp_min(ends[-1], 1e-30)
+    starts = ends - totals
+    # slots before each shard's start, then before each particle's end
+    bound = torch.ceil(M * torch.clamp_max(starts / W, 1.0) - u)
+    bound = torch.cat([torch.clamp(bound, 0.0, float(M)),
+                       torch.full((1,), float(M), device=dev)])
+    bound = torch.cummax(bound, dim=0).values
+    idx = mesh.axis_index(dev)
+    lo, hi = bound[idx][:, None], bound[idx + 1][:, None]
+    local = cumsum_last(w)
+    cdf = torch.clamp_max((starts[idx][:, None] + local) / W, 1.0)
+    # a particle whose prefix reached its shard's total ends the shard's
+    # slots (so the slots float32 drops go to the last particle of
+    # positive weight, as the one-ensemble counting pass gives them)
+    reached = local >= local[:, -1:]
+    reached[:, -1] = True
+    upper = torch.where(reached, hi, torch.clamp(torch.ceil(M * cdf - u),
+                                                 lo, hi))
+    upper = torch.cummax(upper, dim=1).values.to(torch.int64)
+    # slot j of shard s's range takes the first particle whose upper
+    # count passes j; the shard's own slots, at their global rows
+    slots = torch.arange(M, device=dev).expand(L, M).contiguous()
+    anc = torch.clamp_max(torch.searchsorted(upper, slots, right=True), k - 1)
+    mine = (slots >= lo) & (slots < hi)
+    rows = torch.where(mine[..., None], torch.gather(
+        x, 1, anc[..., None].expand(L, M, d)), 0.0)
+    every = mesh.all_gather(rows)
+    owner = torch.searchsorted(bound[1:].contiguous(),
+                               torch.arange(M, dtype=bound.dtype,
+                                            device=dev), right=True)
+    seeds = every[torch.clamp_max(owner, D - 1), torch.arange(M, device=dev)]
+    per = M // D
+    return torch.cat([seeds[s * per:(s + 1) * per]
+                      for s in mesh.shard_indices])
+
+
 @torch.no_grad()
 def _waste_free_core(model, prior, generator, weights, locations, record_ll,
                      n_stages, proposal_scale, canonicalize, kernel="rwm",
-                     lw_seed_a=None, beta=0.3):
+                     lw_seed_a=None, beta=0.3, mesh=None):
     """Waste-free resample-move: M = n/P systematic ancestors, P − 1
     Metropolis steps from each, and every chain state kept as a particle
     with uniform weight (each state is marginally posterior-distributed).
@@ -313,9 +402,16 @@ def _waste_free_core(model, prior, generator, weights, locations, record_ll,
       the ratio is the residual ``[lp(x') + ‖r'‖²/2] − [lp(x) + ‖r‖²/2]``
       with r the whitened residual (carried, so no solve after the first).
 
+    On a ``mesh`` the M seeds are one global systematic draw at the
+    replicated offset (:func:`_sharded_seeds`), shard s runs the chains
+    of slots ``[s·M/D, (s+1)·M/D)`` and keeps their states as its n/D
+    particles, so D must divide M (``ValueError`` otherwise).
+
     :return: ``(uniform weights, locations, mean acceptance)``.
     """
-    n, d = locations.shape
+    n_local, d = locations.shape
+    reducer = _reducer(mesh)
+    n = n_local * reducer.n_shards
     P = int(n_stages)
     if n % P:
         raise ValueError(f"n_stages={P} must divide n_particles={n}")
@@ -323,18 +419,27 @@ def _waste_free_core(model, prior, generator, weights, locations, record_ll,
         raise ValueError(f"unknown waste-free kernel {kernel!r} "
                          "(rwm | pcn)")
     M = n // P
+    if mesh is not None and M % mesh.n_devices:
+        raise ValueError(
+            f"waste-free resample-move on a mesh of {mesh.n_devices} shards "
+            f"runs M = n/P = {M} chains, M/D a shard: the mesh size must "
+            f"divide M (choose waste_free_stages so that it does)")
     log_pdf = resolve_prior_log_pdf(prior)
-    mu = weights @ locations
-    chol = _ensemble_chol(locations, weights=weights)
+    mu = reducer.sum(weights @ locations)
+    chol = _ensemble_chol(locations, weights=weights, reducer=reducer)
     step = (proposal_scale / math.sqrt(d)) * chol
 
     u = torch.rand((), generator=generator, device=locations.device)
-    x0 = locations[_counting_ancestors(u, weights, M)]
+    if mesh is None:
+        x0 = locations[_counting_ancestors(u, weights, M)]
+    else:
+        x0 = _sharded_seeds(u, weights, locations, M, mesh)
+    draws = particle_streams(generator, mesh)
     if lw_seed_a is not None:
         a = float(lw_seed_a)
         h = math.sqrt(max(1.0 - a * a, 0.0))
         seed = (a * x0 + (1.0 - a) * mu[None, :]
-                + h * _normal(generator, x0) @ chol.T)
+                + h * _normal(draws, x0) @ chol.T)
         ok = model.are_models_valid(seed)
         x0 = torch.where(ok[:, None], seed, x0)
 
@@ -350,10 +455,10 @@ def _waste_free_core(model, prior, generator, weights, locations, record_ll,
             chol, (x0 - mu[None, :]).T, upper=False).T
     for _ in range(P - 1):
         if kernel == "pcn":
-            r_p = rho * r + beta * _normal(generator, x)
+            r_p = rho * r + beta * _normal(draws, x)
             prop = mu[None, :] + r_p @ chol.T
         else:
-            prop = x + _normal(generator, x) @ step.T
+            prop = x + _normal(draws, x) @ step.T
         valid = model.are_models_valid(prop)
         lp_p = posterior_lp(prop)
         if kernel == "pcn":
@@ -362,18 +467,22 @@ def _waste_free_core(model, prior, generator, weights, locations, record_ll,
                      - (lp + 0.5 * torch.sum(r * r, dim=1)))
         else:
             ratio = lp_p - lp
-        accept = valid & (_log_uniform(generator, M, x) < ratio)
+        accept = valid & (_log_uniform(draws, x) < ratio)
         x = torch.where(accept[:, None], prop, x)
         lp = torch.where(accept, lp_p, lp)
         if kernel == "pcn":
             r = torch.where(accept[:, None], r_p, r)
         chain.append(x)
-        accs.append(accept.to(torch.float32).mean())
-    # the ancestors and P − 1 chain states each: P·M = n particles
-    out = torch.stack(chain).reshape(n, d)
+        accs.append(_mean(accept, reducer))
+    # the ancestors and P − 1 chain states each: P·M = n particles, a
+    # shard's P·M/D = n/D from its own chains
+    out = torch.stack(chain)
+    if mesh is not None:
+        out = out.reshape(P, mesh.local_shards, -1, d).transpose(0, 1)
+    out = out.reshape(n_local, d)
     if canonicalize:
         out = model.canonicalize(out)
-    w = torch.full((n,), 1.0 / n, dtype=locations.dtype,
+    w = torch.full((n_local,), 1.0 / n, dtype=locations.dtype,
                    device=locations.device)
     acc = (torch.stack(accs).mean() if accs
            else torch.full((), math.nan, device=locations.device))
@@ -384,7 +493,7 @@ def waste_free_rejuvenate_binomial(model, prior, generator, weights,
                                    locations, succ, trials, eps_pool,
                                    n_stages, proposal_scale=2.38,
                                    canonicalize=True, kernel="rwm",
-                                   lw_seed_a=None, beta=0.3):
+                                   lw_seed_a=None, beta=0.3, mesh=None):
     """Waste-free resample-move over the sufficient-statistic record: it
     replaces both the resample and the moves, so call it instead of the
     resampler when the ESS gate fires. A Monte-Carlo likelihood is
@@ -396,13 +505,14 @@ def waste_free_rejuvenate_binomial(model, prior, generator, weights,
         lambda x: binomial_record_log_likelihood(two, x, succ, trials,
                                                  eps_pool),
         n_stages, proposal_scale, canonicalize, kernel=kernel,
-        lw_seed_a=lw_seed_a, beta=beta)
+        lw_seed_a=lw_seed_a, beta=beta, mesh=mesh)
 
 
 def waste_free_rejuvenate(model, prior, generator, weights, locations,
                           outcomes, eps_record, mask, n_stages,
                           proposal_scale=2.38, canonicalize=True,
-                          kernel="rwm", lw_seed_a=None, beta=0.3):
+                          kernel="rwm", lw_seed_a=None, beta=0.3,
+                          mesh=None):
     """Full-record waste-free resample-move (any deterministic model;
     O(T·M) per evaluation instead of O(T·n)). A Monte-Carlo likelihood is
     refused (``ValueError``): keeping every chain state as a particle
@@ -413,7 +523,7 @@ def waste_free_rejuvenate(model, prior, generator, weights, locations,
         model, prior, generator, weights, locations,
         lambda x: _grouped_log_likelihood(model, x, groups),
         n_stages, proposal_scale, canonicalize, kernel=kernel,
-        lw_seed_a=lw_seed_a, beta=beta)
+        lw_seed_a=lw_seed_a, beta=beta, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -494,16 +604,18 @@ def _lp_and_whitened_grad(posterior_lp, x, chol, cap):
 
 def _adaptive_sweeps(model, generator, x, lp, u, chol, posterior_lp,
                      lp_and_grad, n_moves, log_scale, adapt_t, method,
-                     target_accept, adapt, crn_seed=None):
+                     target_accept, adapt, crn_seed=None, mesh=None):
     """The sweep loop of :func:`_mh_moves_adaptive`, on device tensors
     only: no value comes to the host. ``u`` is the whitened gradient at
     ``x`` (MALA; None for the random walk). With ``crn_seed`` (a
     Monte-Carlo likelihood) each sweep re-estimates both sides of the
     ratio with common random numbers, a generator seeded ``crn_seed +
     sweep`` for each (Monte Carlo within Metropolis), so no lucky estimate
-    freezes into the chain. Returns ``(x, summed acceptance, log_scale,
-    adapt_t)``."""
-    n = x.shape[0]
+    freezes into the chain; on a ``mesh`` that generator seeds the
+    shards' streams. ``generator`` is the caller's, or the shards'
+    streams of a sharded ensemble. Returns ``(x, summed acceptance,
+    log_scale, adapt_t)``."""
+    reducer = _reducer(mesh)
     acc_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     ls, t = log_scale, adapt_t
     for sweep in range(int(n_moves)):
@@ -529,16 +641,16 @@ def _adaptive_sweeps(model, generator, x, lp, u, chol, posterior_lp,
             else:
                 g = torch.Generator(device=x.device)
                 g.manual_seed(crn_seed + sweep)
-                lp_p = posterior_lp(prop, g)
+                lp_p = posterior_lp(prop, particle_streams(g, mesh))
                 g.manual_seed(crn_seed + sweep)
-                lp = posterior_lp(x, g)
+                lp = posterior_lp(x, particle_streams(g, mesh))
             ratio = lp_p - lp
-        accept = valid & (_log_uniform(generator, n, x) < ratio)
+        accept = valid & (_log_uniform(generator, x) < ratio)
         x = torch.where(accept[:, None], prop, x)
         lp = torch.where(accept, lp_p, lp)
         if method == "mala":
             u = torch.where(accept[:, None], u_p, u)
-        acc = accept.to(torch.float32).mean()
+        acc = _mean(accept, reducer)
         acc_sum = acc_sum + acc
         if adapt:
             ls = torch.clamp(ls + _rm_gain(t) * (acc - target_accept),
@@ -550,7 +662,7 @@ def _adaptive_sweeps(model, generator, x, lp, u, chol, posterior_lp,
 @torch.no_grad()
 def _mh_moves_adaptive(model, prior, generator, locations, record_ll,
                        n_moves, log_scale, adapt_t, method, target_accept,
-                       canonicalize, adapt=True, grad_clip=20.0):
+                       canonicalize, adapt=True, grad_clip=20.0, mesh=None):
     """Adaptive Metropolis core: ``n_moves`` sweeps of random-walk
     ('rwm') or Langevin ('mala') proposals preconditioned by the ensemble
     covariance, the log step size moved by Robbins-Monro toward
@@ -565,7 +677,9 @@ def _mh_moves_adaptive(model, prior, generator, locations, record_ll,
 
     ``log_scale`` and ``adapt_t`` may be numbers or 0-d device tensors;
     they come back as 0-d device tensors, for the caller to read once per
-    event.
+    event. On a ``mesh`` (``locations`` this process's rows) the proposal
+    factor, each sweep's acceptance and so the adapted scale are the
+    whole ensemble's, the same on every rank.
 
     :return: ``(locations, mean_acceptance, log_scale, adapt_t)``.
     """
@@ -580,7 +694,7 @@ def _mh_moves_adaptive(model, prior, generator, locations, record_ll,
     x = locations
     d = x.shape[1]
     log_pdf = resolve_prior_log_pdf(prior)
-    chol = _ensemble_chol(x)
+    chol = _ensemble_chol(x, reducer=_reducer(mesh))
     cap = grad_clip * math.sqrt(d)
     log_scale = torch.as_tensor(log_scale, dtype=x.dtype, device=x.device)
     adapt_t = torch.as_tensor(adapt_t, dtype=torch.int32, device=x.device)
@@ -603,9 +717,9 @@ def _mh_moves_adaptive(model, prior, generator, locations, record_ll,
     else:
         lp, u = posterior_lp(x), None
     x, acc_sum, log_scale, adapt_t = _adaptive_sweeps(
-        model, generator, x, lp, u, chol, posterior_lp, lp_and_grad,
-        n_moves, log_scale, adapt_t, method, float(target_accept), adapt,
-        crn_seed)
+        model, particle_streams(generator, mesh), x, lp, u, chol,
+        posterior_lp, lp_and_grad, n_moves, log_scale, adapt_t, method,
+        float(target_accept), adapt, crn_seed, mesh)
     if canonicalize:
         x = model.canonicalize(x)
     return x, acc_sum / max(int(n_moves), 1), log_scale, adapt_t
@@ -614,7 +728,7 @@ def _mh_moves_adaptive(model, prior, generator, locations, record_ll,
 def mcmc_rejuvenate_adaptive(model, prior, generator, locations, outcomes,
                              eps_record, mask, n_moves, log_scale, adapt_t,
                              method="mala", target_accept=None,
-                             canonicalize=True, adapt=True):
+                             canonicalize=True, adapt=True, mesh=None):
     """Adaptive twin of :func:`mcmc_rejuvenate`: MALA or random-walk
     proposals with Robbins-Monro adaptation on the full-record target.
 
@@ -628,14 +742,14 @@ def mcmc_rejuvenate_adaptive(model, prior, generator, locations, outcomes,
         lambda x, g=None: _grouped_log_likelihood(model, x, groups, g),
         n_moves,
         log_scale, adapt_t, method, target_accept, canonicalize,
-        adapt=adapt)
+        adapt=adapt, mesh=mesh)
 
 
 def mcmc_rejuvenate_binomial_adaptive(model, prior, generator, locations,
                                       succ, trials, eps_pool, n_moves,
                                       log_scale, adapt_t, method="mala",
                                       target_accept=None, canonicalize=True,
-                                      adapt=True):
+                                      adapt=True, mesh=None):
     """Adaptive twin of :func:`mcmc_rejuvenate_binomial` on the
     sufficient-statistic target.
 
@@ -650,4 +764,4 @@ def mcmc_rejuvenate_binomial_adaptive(model, prior, generator, locations,
         lambda x: binomial_record_log_likelihood(two, x, succ, trials,
                                                  eps_pool),
         n_moves, log_scale, adapt_t, method, target_accept, canonicalize,
-        adapt=adapt)
+        adapt=adapt, mesh=mesh)

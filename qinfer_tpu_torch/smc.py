@@ -18,7 +18,9 @@ waste-free resample-move (:mod:`qinfer_tpu_torch.rejuvenation`).
 scans it); the region estimators sort on the device and finish on the
 host (float64 cumsum, scipy hulls, the MVEE). Outcomes are scalars or,
 for ``outcome_ndim = 1`` models, count vectors; a Monte-Carlo likelihood
-(``wants_likelihood_key``) gets a ``torch.Generator`` in every call.
+(``wants_likelihood_key``) gets a ``torch.Generator`` in every call, or
+on a particle mesh its shards' streams
+(:class:`~qinfer_tpu_torch.parallel.mesh.ParticleStreams`).
 """
 
 from __future__ import annotations
@@ -35,15 +37,17 @@ import torch
 from .config import EPS
 from ._exceptions import ResamplerWarning, ZeroWeightError, ZeroWeightWarning
 from .abstract_model import (DifferentiableModel, FiniteOutcomeModel,
-                             expparams_at, keyed_kwargs, n_expparams)
+                             expparams_at, keyed_kwargs, n_expparams,
+                             per_particle)
 from .derived_models import BinomialModel
 from .distributions import ParticleDistribution
 from .heuristics import mesh_inverse_cdf
-from .parallel.mesh import LOCAL, placement, reducer_of, shard_state
+from .parallel.mesh import (LOCAL, particle_streams, placement, reducer_of,
+                            shard_state)
 from .parallel.resample import DistributedLiuWestResampler
 from .resamplers import LiuWestResampler
 from . import rejuvenation as rj
-from .utils import (in_ellipsoid, mvee, particle_covariance_mtx,
+from .utils import (_map_leaves, in_ellipsoid, mvee, particle_covariance_mtx,
                     particle_mean, particle_meanfn, weighted_moments)
 
 __all__ = ["SMCState", "SMCUpdater", "SMCUpdaterBCRB",
@@ -406,10 +410,18 @@ def _log_kde(pts, w_ref, x_ref, h2):
     return torch.cat(out)
 
 
-def _kl_divergence(w_p, x_p, w_q, x_q, kernel_bandwidth=None):
+def _kl_divergence(w_p, x_p, w_q, x_q, kernel_bandwidth=None, reducer=LOCAL,
+                   reducer_q=LOCAL):
     """D(p ‖ q) between two particle clouds through Gaussian kernel
     density estimates of both at p's particles; the bandwidth defaults to
-    Silverman's rule on q's covariance."""
+    Silverman's rule on q's covariance. An ensemble sharded across
+    processes (``reducer``, ``reducer_q``) gives this rank's rows: p's
+    rows are the rank's query points, both whole clouds are gathered as
+    the estimates' references (O(n²) work and O(n) memory a rank, as
+    the JAX package's), and the sum over p's particles is the ranks'
+    partials summed."""
+    ref_w, ref_x = reducer.gather(w_p), reducer.gather(x_p)
+    w_q, x_q = reducer_q.gather(w_q), reducer_q.gather(x_q)
     d = x_p.shape[1]
     if kernel_bandwidth is None:
         cov_q = particle_covariance_mtx(w_q, x_q)
@@ -418,13 +430,13 @@ def _kl_divergence(w_p, x_p, w_q, x_q, kernel_bandwidth=None):
     else:
         h2 = torch.as_tensor(float(kernel_bandwidth) ** 2,
                              dtype=x_p.dtype, device=x_p.device)
-    return torch.sum(w_p * (_log_kde(x_p, w_p, x_p, h2)
-                            - _log_kde(x_p, w_q, x_q, h2)))
+    return reducer.sum(torch.sum(w_p * (_log_kde(x_p, ref_w, ref_x, h2)
+                                        - _log_kde(x_p, w_q, x_q, h2))))
 
 
 def _update_step(model, resampler, state, outcome, eps, resample_thresh,
                  zero_weight_thresh, generator, check_resample=True,
-                 resample_gate=None, reducer=LOCAL):
+                 resample_gate=None, reducer=LOCAL, mesh=None):
     """One SMC update: reweight → normalize → (time-dependent models:
     ``update_timestep``) → ESS check → resample.
 
@@ -439,19 +451,30 @@ def _update_step(model, resampler, state, outcome, eps, resample_thresh,
         ensemble sharded across processes (``reducer_of(sharding)``); the
         state then holds this rank's rows, n counts the whole ensemble,
         and every rank reaches the same verdicts.
+    :param mesh: the mesh of a sharded ensemble: the step's per-particle
+        draws (a keyed likelihood's noise, then the timestep) come from
+        its shards' streams, seeded from ``generator``
+        (:class:`~qinfer_tpu_torch.parallel.mesh.ParticleStreams`), so a
+        mesh across processes draws what a one-process mesh of the same D
+        draws; unsharded (``None``) they come from ``generator`` itself.
     :return: ``(new_state, log_norm, was_zero)`` with ``log_norm`` a float
         and ``was_zero`` a bool.
     """
     n = state.weights.shape[0] * reducer.n_shards
+    time_dependent = bool(model.is_time_dependent)
+    draws = generator
+    if time_dependent or getattr(model, "wants_likelihood_key", False):
+        draws = particle_streams(generator, mesh)
     hyp, norm, log_norm = _reweight(
-        model, state.weights, state.locations, outcome, eps, generator,
+        model, state.weights, state.locations, outcome, eps, draws,
         reducer)
     was_zero_t = norm <= zero_weight_thresh
     new_w = torch.where(was_zero_t, 1.0 / n,
                         hyp / torch.clamp_min(norm, EPS))
     locs = state.locations
-    if model.is_time_dependent:
-        locs = model.update_timestep(generator, locs, eps)[:, :, 0]
+    if time_dependent:
+        locs = per_particle(draws, lambda g, x: model.update_timestep(
+            g, x, eps)[:, :, 0], locs)
     ess = 1.0 / reducer.sum(torch.sum(new_w * new_w))
     # the step's one device→host copy
     was_zero, below, log_norm_host = torch.stack([
@@ -510,8 +533,17 @@ class SMCUpdater:
         and so do the replicated results (``min_n_ess``,
         ``log_total_likelihood``, ``resample_count``); the resampler must
         be a ``DistributedLiuWestResampler`` on the mesh (the default
-        there), and time-dependent or keyed models, moves and the
-        resampling diagnostics raise :class:`NotImplementedError`.
+        there). On either mesh the per-particle draws (a keyed
+        likelihood's noise, a time-dependent model's step, the moves'
+        proposals) come from the shards' own streams
+        (:class:`~qinfer_tpu_torch.parallel.mesh.ParticleStreams`), so a
+        mesh across processes draws what a one-process mesh of the same
+        D draws; the estimators that read the cloud on the host
+        (``est_credible_region`` and the region estimators,
+        ``posterior_marginal``, the cluster estimators) raise
+        :class:`NotImplementedError` across processes, as the JAX
+        package's ``np.asarray`` of an array no process holds whole
+        does.
 
     Resample-move (:mod:`qinfer_tpu_torch.rejuvenation`):
 
@@ -605,10 +637,10 @@ class SMCUpdater:
         self.seed = int(seed)
         self.device = placement(device, sharding)
         self.sharding = sharding
+        self._mesh = None if sharding is None else sharding.mesh
         self._reducer = reducer_of(sharding)
         if self._reducer is not LOCAL:
-            self.resampler = self._across_processes(
-                model, given_resampler, n_mcmc_moves, waste_free_stages)
+            self.resampler = self._across_processes(given_resampler)
         self.n_mcmc_moves = int(n_mcmc_moves)
         self.mcmc_proposal_scale = (None if mcmc_proposal_scale is None
                                     else float(mcmc_proposal_scale))
@@ -700,27 +732,10 @@ class SMCUpdater:
                     "compressed statistics)")
         self.reset()
 
-    def _across_processes(self, model, resampler, n_mcmc_moves,
-                          waste_free_stages):
-        """The resampler of an ensemble sharded across processes (the
-        mesh's two-level Liu-West unless one is given); what that layout
-        does not run yet raises."""
+    def _across_processes(self, resampler):
+        """The resampler of an ensemble sharded across processes: the
+        mesh's two-level Liu-West unless one is given."""
         mesh = self.sharding.mesh
-        later = {
-            "a time-dependent model (its update_timestep draws per "
-            "particle)": bool(model.is_time_dependent),
-            "a keyed likelihood (its noise is drawn per particle)":
-                bool(getattr(model, "wants_likelihood_key", False)),
-            "Metropolis or waste-free moves": (int(n_mcmc_moves) > 0
-                                               or int(waste_free_stages) > 0),
-            "the resampling diagnostics": (self.debug_resampling
-                                           or self.track_resampling_divergence),
-        }
-        for what, asked in later.items():
-            if asked:
-                raise NotImplementedError(
-                    f"{what} on a mesh across processes is not ported "
-                    f"(ROADMAP queue 1)")
         if resampler is None:
             return DistributedLiuWestResampler(mesh, a=0.98)
         if getattr(resampler, "mesh", None) is not mesh:
@@ -735,8 +750,12 @@ class SMCUpdater:
         this process."""
         if self._reducer is not LOCAL:
             raise NotImplementedError(
-                f"{what} needs the whole ensemble in one process; on a mesh "
-                f"across processes each rank holds its own block")
+                f"{what} reads the whole cloud on the host, which no rank "
+                f"of a mesh across processes holds (the JAX package's "
+                f"np.asarray of such an array raises too; ROADMAP item "
+                f"17); gather the ensemble into one process first "
+                f"(save_updater, then load_updater into an unsharded "
+                f"updater)")
 
     # -- state management --------------------------------------------------
 
@@ -903,7 +922,7 @@ class SMCUpdater:
                 self.model, self.resampler, prev_state, outcome_t, eps,
                 self.resample_thresh, self.zero_weight_thresh, self.generator,
                 check_resample=check and self.waste_free_stages == 0,
-                reducer=self._reducer)
+                reducer=self._reducer, mesh=self._mesh)
             if was_zero:
                 self._handle_zero_weight()
             if new_state.just_resampled:
@@ -936,15 +955,17 @@ class SMCUpdater:
         """The opt-in resampling diagnostics of one resample event
         (``track_resampling_divergence``, ``debug_resampling``); nothing
         runs, and nothing syncs, when both are off."""
+        red = self._reducer
         if self.track_resampling_divergence:
             self.resampling_divergences.append(float(_kl_divergence(
                 prev_state.weights, prev_state.locations,
-                new_state.weights, new_state.locations)))
+                new_state.weights, new_state.locations, reducer=red,
+                reducer_q=red)))
         if self.debug_resampling:
             logging.getLogger(__name__).debug(
                 "resample #%d: n_ess %.1f -> %.1f", new_state.resample_count,
-                float(1.0 / torch.sum(prev_state.weights ** 2)),
-                float(1.0 / torch.sum(new_state.weights ** 2)))
+                float(1.0 / red.sum(torch.sum(prev_state.weights ** 2))),
+                float(1.0 / red.sum(torch.sum(new_state.weights ** 2))))
 
     def _warn_resampler_fallback(self, n_slots):
         if n_slots > 0:
@@ -1080,7 +1101,8 @@ class SMCUpdater:
             proposal_scale=self._fixed_proposal_scale(),
             canonicalize=self.mcmc_canonicalize,
             kernel=self.waste_free_kernel,
-            lw_seed_a=self.waste_free_lw_seed, beta=self.waste_free_beta)
+            lw_seed_a=self.waste_free_lw_seed, beta=self.waste_free_beta,
+            mesh=self._mesh)
         self._state = dataclasses.replace(
             st, weights=w, locations=x, just_resampled=True,
             resample_count=st.resample_count + 1)
@@ -1115,7 +1137,8 @@ class SMCUpdater:
                 *record, self.n_mcmc_moves, self._mcmc_log_scale,
                 self._mcmc_adapt_t, method=self.mcmc_method,
                 target_accept=self.mcmc_target_accept,
-                canonicalize=self.mcmc_canonicalize, adapt=self.mcmc_adapt)
+                canonicalize=self.mcmc_canonicalize, adapt=self.mcmc_adapt,
+                mesh=self._mesh)
             self._mcmc_log_scale = float(ls)
             self._mcmc_adapt_t = int(t)
         else:
@@ -1123,7 +1146,7 @@ class SMCUpdater:
                 self.model, self.prior, self.generator, st.locations,
                 *record, self.n_mcmc_moves,
                 proposal_scale=self._fixed_proposal_scale(),
-                canonicalize=self.mcmc_canonicalize)
+                canonicalize=self.mcmc_canonicalize, mesh=self._mesh)
         self.mcmc_acceptance_record.append(float(acc))
         self._state = dataclasses.replace(st, locations=x)
 
@@ -1146,13 +1169,20 @@ class SMCUpdater:
                                 * n_expparams(eps)):
             norm_w, L, norms = _hypothetical_update(
                 self.model, self._state.weights, self._state.locations,
-                outcomes, eps, self._design_generator, self._reducer)
+                outcomes, eps, self._design_draws(), self._reducer)
         out = (norm_w,)
         if return_likelihood:
             out = out + (L,)
         if return_normalization:
             out = out + (norms,)
         return out[0] if len(out) == 1 else out
+
+    def _design_draws(self):
+        """Where a keyed likelihood's noise comes from in the design
+        scorers: the design generator, or on a mesh its shards' streams
+        (``None`` for a deterministic likelihood)."""
+        g = self._design_generator
+        return g if g is None else particle_streams(g, self._mesh)
 
     def _score_candidates(self, score_fn, expparams, extra_args,
                           candidate_chunk):
@@ -1164,7 +1194,7 @@ class SMCUpdater:
                                 * self.n_particles * n_expparams(eps)):
             return score_candidates(score_fn, self.model, self._state.weights,
                                     self._state.locations, eps, extra_args,
-                                    candidate_chunk, self._design_generator,
+                                    candidate_chunk, self._design_draws(),
                                     self._reducer)
 
     def bayes_risk(self, expparams, candidate_chunk=None):
@@ -1208,10 +1238,10 @@ class SMCUpdater:
     def est_meanfn(self, fn):
         """Posterior mean of ``fn``, which maps one (d,) location to a
         tensor or a tuple, list or dict of them (vectorized with
-        :func:`torch.func.vmap`)."""
-        self._one_process("est_meanfn")
-        return particle_meanfn(self._state.weights, self._state.locations,
-                               fn)
+        :func:`torch.func.vmap`); across processes each leaf is the ranks'
+        partial sums of w·fn(x), summed."""
+        return _map_leaves(self._reducer.sum, particle_meanfn(
+            self._state.weights, self._state.locations, fn))
 
     def est_entropy(self):
         """Entropy −Σ wᵢ log wᵢ of the particle weights (0-d tensor)."""
@@ -1221,11 +1251,17 @@ class SMCUpdater:
         """KL divergence D(self ‖ other) between two particle posteriors,
         through Gaussian kernel density estimates (bandwidth by Silverman's
         rule on ``other``'s covariance unless given), a block of at most
-        2²² (block, n, d) differences at a time (0-d tensor)."""
-        self._one_process("est_kl_divergence")
+        2²² (block, n, d) differences at a time (0-d tensor). O(n²) work:
+        each of self's particles against every particle of both clouds.
+        Across processes each rank evaluates its own particles against
+        both whole clouds, all-gathered (O(n) memory a rank), and the
+        ranks' partial sums are summed, as the JAX package's reductions
+        over a sharded array."""
         return _kl_divergence(self._state.weights, self._state.locations,
                               other.particle_weights,
-                              other.particle_locations, kernel_bandwidth)
+                              other.particle_locations, kernel_bandwidth,
+                              reducer=self._reducer,
+                              reducer_q=getattr(other, "_reducer", LOCAL))
 
     def sample(self, n=1, generator=None):
         """``n`` particles drawn ∝ their weights, on the updater's
@@ -1246,10 +1282,12 @@ class SMCUpdater:
     def posterior_distribution(self):
         """The current posterior as a :class:`~qinfer_tpu_torch.
         distributions.ParticleDistribution` (a warm start for another
-        updater)."""
-        self._one_process("posterior_distribution")
-        return ParticleDistribution(self._state.locations,
-                                    self._state.weights)
+        updater); across processes the whole cloud, gathered on every
+        rank, so its draws are the same on every rank (the JAX package's
+        samples on the device from the sharded array)."""
+        red = self._reducer
+        return ParticleDistribution(red.gather(self._state.locations),
+                                    red.gather(self._state.weights))
 
     # -- region estimation -------------------------------------------------
 

@@ -333,7 +333,13 @@ def test_collectives_and_engine_on_three_ranks(ranks):
             "local_second_call"]
         assert "pad_particles(31) = 33" in got["indivisible"]
         assert got["updater_local_rows"] == 10
-        assert "sharded across processes" in got["save"]
+        # a checkpoint saved across the ranks loads back on them, one
+        # saved for another mesh size is refused by name, and an estimator
+        # that reads the whole cloud on the host still refuses
+        assert got["reloaded"]
+        assert "process_shards is 2 and this mesh spans 3" in got[
+            "other_size"]
+        assert "reads the whole cloud on the host" in got["host_estimator"]
     for key, value in want.items():
         np.testing.assert_allclose(engine[key], np.asarray(value),
                                    rtol=1e-5, atol=1e-7, err_msg=key)
