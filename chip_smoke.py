@@ -131,6 +131,9 @@ one line, and any failure exits non-zero without the final ``ok`` line:
    and ALE, each within ``item8_bench``'s 4 sd; ``perf_test_scan_batch``
    with accelerated precession, 8 x 131 072 x 64, on the trial mesh
    across the ranks, equal to the one-process trial mesh to the bit.
+   Then a one-rank NCCL group on the card runs the worker's
+   ``collectives`` task: its collectives and engine values equal the
+   one-process mesh of one shard's to the bit, timed by CUDA events.
    Then one more precession run records the largest |ω·t/2| that K1
    meets, and K1 is checked on that step's particles and t;
 6. timing: each kernel's time against its plain version's and, where one
@@ -153,6 +156,15 @@ Then it prints the kernels' JSON line, the card line and, last,
 ``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --kernels-only``
 runs phases 1-3 and 6 alone, prints the kernels' line (without launch
 counts) and the card, and no ``ok`` line.
+
+``python3 chip_smoke.py --cards 4`` needs four cards of one host (it
+exits 1 on fewer, and runs nothing in their place): after phases 1-2 it
+runs the process phase's legs over 4 ranks, one a card, by NCCL (and the
+resample-move leg's resume on 4 fresh NCCL ranks), by gloo on the same
+cards, and on a one-process mesh of 4 shards of card 0, and holds them
+to the bars of :func:`run_cards`; then it prints the kernels' line (K1,
+K3 and K5 at a rank's shapes, with every rank's launches), every card's
+line and the ``ok`` line with the count of cards present.
 """
 
 import json
@@ -198,11 +210,11 @@ RESUME = (50_000, 200, 200)
 PARALLEL = (N_MAIN, 256, 8)
 PARALLEL_SEED = 5
 SCALING_SHARDS = (1, 8)
-#: the process phase: ranks of the mesh across processes (all on the one
-#: card, gloo through host memory), the bar on their resample count
-#: against the one-process run of the same shards (the two part after
-#: float order changes a PGH pick; the bar is stated in PERF.md), and the
-#: ranks' time limit
+#: the process phase: ranks of the mesh across processes (on a machine
+#: with one card they share it, gloo through host memory), the bar on
+#: their resample count against the one-process run of the same shards
+#: (the two part after float order changes a PGH pick; the bar is stated
+#: in PERF.md), and the ranks' time limit
 PROCESSES = 2
 PROCESS_RESAMPLE_BAR = 10
 PROCESS_TIMEOUT_S = 420
@@ -217,6 +229,11 @@ PROCESS_DRIFT = (50_000, 120)
 PROCESS_WASTE_FREE = (50_000, 40)
 PROCESS_ALE = (50_000, 12)
 PROCESS_TRIALS = (8, 131_072, 64)
+#: ``--cards``: the ranks, one a card, and the waste-free leg there (its
+#: 8 stages run n/8 chains, which the ranks must divide: 50 000 gives
+#: 6250, 51 200 gives 6400)
+CARDS = 4
+CARDS_WASTE_FREE = (51_200, 40)
 #: the bar on |fidelity(ranks) − fidelity(one process)| of the
 #: resample-move leg: the runs part at the first resample and are then
 #: two draws of one law (PERF.md §6 sets it from a CPU rehearsal)
@@ -236,6 +253,30 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 33.5e12
 #: the card's L2 (H100 SXM: 50 MB)
 L2_BYTES = 50 * 2 ** 20
+#: each kernel's source and the TPU kernel it replaces
+KERNEL_SOURCES = {
+    "fused_precession_update": ("qinfer_tpu_torch/csrc/precession.cu",
+                                "qinfer_tpu/ops/precession.py:80"),
+    "precession_pr0": ("qinfer_tpu_torch/csrc/precession.cu",
+                       "qinfer_tpu/ops/precession.py:146"),
+    "streaming_resample_locations": (
+        "qinfer_tpu_torch/csrc/streaming_resample.cu",
+        "qinfer_tpu/ops/streaming_resample.py:181"),
+    "jacobi_project_lanes": ("qinfer_tpu_torch/csrc/jacobi.cu",
+                             "qinfer_tpu/ops/jacobi.py:309"),
+    "jacobi_project_lanes_looped": ("qinfer_tpu_torch/csrc/jacobi.cu",
+                                    "qinfer_tpu/ops/jacobi.py:230"),
+    "jacobi_eigh_lanes": ("qinfer_tpu_torch/csrc/jacobi.cu",
+                          "qinfer_tpu/ops/jacobi.py:269"),
+}
+
+
+def kernel_result(name, **keys):
+    """The start of a kernel's entry in the kernels' line: its name, route,
+    source and the TPU kernel it replaces, then ``keys``."""
+    source, replaces = KERNEL_SOURCES[name]
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                **keys)
 
 
 def bound(nbytes, ops):
@@ -494,9 +535,7 @@ def check_kernels(torch, dev):
                     "bit-identical to the by-value call")
     # bound: ω and w read, h written; ~10 operations a particle (cosf as 1)
     timers.append(timed(
-        dict(name="fused_precession_update", route="cuda",
-             source="qinfer_tpu_torch/csrc/precession.cu",
-             replaces="qinfer_tpu/ops/precession.py:80", max_abs_err=err),
+        kernel_result("fused_precession_update", max_abs_err=err),
         lambda: prec.fused_precession_update(omega, w, 37.5, 1,
                                              normalize=False),
         lambda: prec.fused_precession_update_plain(omega, w, 37.5, 1,
@@ -521,9 +560,7 @@ def check_kernels(torch, dev):
     # bound: ω and t read, cos² written; 3 operations an entry (cosf as 1)
     no_cos2 = "no one PyTorch call computes cos²(ω·t/2)"
     timers.append(timed(
-        dict(name="precession_pr0", route="cuda",
-             source="qinfer_tpu_torch/csrc/precession.cu",
-             replaces="qinfer_tpu/ops/precession.py:146", max_abs_err=err),
+        kernel_result("precession_pr0", max_abs_err=err),
         lambda: prec.precession_pr0(omega[:1], ts[1:2]),
         lambda: prec.precession_pr0_plain(omega[:1], ts[1:2]),
         no_library=no_cos2, bound_at=bound(12, 3)))
@@ -568,10 +605,8 @@ def check_kernels(torch, dev):
             bound_at=k3_bound(m, d))
 
     timers.append(fill_timed(
-        dict(name="streaming_resample_locations", route="cuda",
-             source="qinfer_tpu_torch/csrc/streaming_resample.cu",
-             replaces="qinfer_tpu/ops/streaming_resample.py:181",
-             max_abs_err=0.0), *cases[0]))
+        kernel_result("streaming_resample_locations", max_abs_err=0.0),
+        *cases[0]))
     extra.append(fill_timed("streaming_resample_locations n=%d, d=%d"
                             % K3_PROCESS, *cases[3]))
     say("kernels", f"K3 streaming_resample_locations n={n}, d=1: bit-exact "
@@ -648,13 +683,13 @@ def check_jacobi_kernels(torch, dev):
     timers, extra = [], []
     no_projection = "no one PyTorch call projects onto the PSD cone"
     proj_tol = {8: 2.3e-6, 16: 2.5e-5, 32: 2.8e-5}
-    # (kernel, its plain version, TPU wrapper line, shapes checked, the
-    # main path's shape: the diffusive path's d = 8, the process path's 32)
-    for name, fn, plain, line, dims, main_d in (
+    # (kernel, its plain version, shapes checked, the main path's shape:
+    # the diffusive path's d = 8, the process path's 32)
+    for name, fn, plain, dims, main_d in (
             ("jacobi_project_lanes", jac.jacobi_project_lanes,
-             jac.jacobi_project_lanes_plain, 309, (8, 16), 8),
+             jac.jacobi_project_lanes_plain, (8, 16), 8),
             ("jacobi_project_lanes_looped", jac.jacobi_project_lanes_looped,
-             jac.jacobi_project_lanes_looped_plain, 230, (32,), 32)):
+             jac.jacobi_project_lanes_looped_plain, (32,), 32)):
         err = 0.0
         for d in dims:
             for a, sweeps in inputs[d]:
@@ -680,10 +715,7 @@ def check_jacobi_kernels(torch, dev):
                 err = max(err, e)
         a, sweeps = inputs[main_d][0]
         timers.append(timed(
-            dict(name=name, route="cuda",
-                 source="qinfer_tpu_torch/csrc/jacobi.cu",
-                 replaces=f"qinfer_tpu/ops/jacobi.py:{line}",
-                 max_abs_err=err),
+            kernel_result(name, max_abs_err=err),
             lambda fn=fn, a=a, s=sweeps: fn(a, sweeps=s),
             lambda plain=plain, a=a, s=sweeps: plain(a, sweeps=s),
             no_library=no_projection,
@@ -753,9 +785,7 @@ def check_jacobi_kernels(torch, dev):
     # K6's main-path shape: E(S) of the BCSZ prior draw, (50 000, 8, 8)
     a8 = inputs[8][0][0][:50_000].contiguous()
     timers.append(timed(
-        dict(name="jacobi_eigh_lanes", route="cuda",
-             source="qinfer_tpu_torch/csrc/jacobi.cu",
-             replaces="qinfer_tpu/ops/jacobi.py:269", max_abs_err=err),
+        kernel_result("jacobi_eigh_lanes", max_abs_err=err),
         lambda: jac.jacobi_eigh_lanes(a8, sweeps=EMBEDDED_SWEEPS),
         lambda: jac.jacobi_eigh_lanes_plain(a8, sweeps=EMBEDDED_SWEEPS),
         **eigh_library(torch, a8),
@@ -2205,12 +2235,13 @@ def run_parallel_path(torch, dev, card, config5_state, config5_mean):
     return launches, flagship, entry
 
 
-def _run_ranks(torch, tasks, *args):
-    """Start ``PROCESSES`` ranks of ``qinfer_tpu_torch.parallel.worker``
-    on the card (gloo over a ``file://`` store in a fresh temporary
-    directory) and wait for them: each rank's RESULT lines, by task. A
-    rank that exits non-zero, outlives ``PROCESS_TIMEOUT_S`` or prints no
-    RESULT fails the phase; every rank is stopped before this returns."""
+def _run_ranks(torch, world, backend, tasks, *args):
+    """Start ``world`` ranks of ``qinfer_tpu_torch.parallel.worker`` on
+    the cards (rank r on card r mod the cards present; ``backend`` over a
+    ``file://`` store in a fresh temporary directory) and wait for them:
+    each rank's RESULT lines, by task. A rank that exits non-zero,
+    outlives ``PROCESS_TIMEOUT_S`` or prints no RESULT fails the phase;
+    every rank is stopped before this returns."""
     import subprocess
     import tempfile
 
@@ -2218,24 +2249,25 @@ def _run_ranks(torch, tasks, *args):
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     with tempfile.TemporaryDirectory() as tmp:
         cmd = [sys.executable, "-m", "qinfer_tpu_torch.parallel.worker",
-               "--world", str(PROCESSES), "--init-method",
-               f"file://{tmp}/store", "--tasks", tasks, *map(str, args)]
+               "--world", str(world), "--backend", backend,
+               "--init-method", f"file://{tmp}/store", "--tasks", tasks,
+               *map(str, args)]
         # each rank writes to a file: a rank blocked on a full pipe would
         # stall the others at their next collective
         logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
-                for r in range(PROCESSES)]
+                for r in range(world)]
         procs = [subprocess.Popen(cmd + ["--rank", str(r)], cwd=ROOT,
                                   env=env, stdout=logs[r],
                                   stderr=subprocess.STDOUT, text=True)
-                 for r in range(PROCESSES)]
+                 for r in range(world)]
         deadline = time.perf_counter() + PROCESS_TIMEOUT_S
         try:
             for p in procs:
                 try:
                     p.wait(timeout=max(1.0, deadline - time.perf_counter()))
                 except subprocess.TimeoutExpired:
-                    raise SmokeFailure(f"processes: a rank outlived "
-                                       f"{PROCESS_TIMEOUT_S} s")
+                    raise SmokeFailure(f"processes ({backend}): a rank "
+                                       f"outlived {PROCESS_TIMEOUT_S} s")
         finally:
             for p in procs:
                 if p.poll() is None:
@@ -2251,8 +2283,8 @@ def _run_ranks(torch, tasks, *args):
         lines = [json.loads(ln[len("RESULT "):]) for ln in out.splitlines()
                  if ln.startswith("RESULT ")]
         require(p.returncode == 0 and lines,
-                f"processes: rank {r} exited {p.returncode} with "
-                f"{len(lines)} RESULT lines:\n{out[-4000:]}")
+                f"processes ({backend}): rank {r} exited {p.returncode} "
+                f"with {len(lines)} RESULT lines:\n{out[-4000:]}")
         by_task = {}
         for line in lines:
             by_task.setdefault(line["task"], []).append(line)
@@ -2262,20 +2294,23 @@ def _run_ranks(torch, tasks, *args):
 
 def _replicated(line):
     """The numbers of a worker's RESULT line that every rank must hold to
-    the bit (not its rank, its walls and its own blocks)."""
+    the bit (not its rank, its device, its walls and its own blocks)."""
     return {k: v for k, v in line.items()
-            if k not in ("rank", "wall_s", "updates_per_s",
+            if k not in ("rank", "device", "wall_s", "updates_per_s",
                          "particle_updates_per_s", "candidate_scores_per_s",
                          "peak_memory_bytes")
             and not k.startswith("local")}
 
 
-def _leg_specs():
-    """The worker's ``--runs`` of the process phase's legs."""
+def _leg_specs(world):
+    """The worker's ``--runs`` of the process phase's legs on ``world``
+    ranks (waste-free runs n/8 chains, world | n/8)."""
     n, steps, save_at = PROCESS_FLAGSHIP
+    waste_free = (CARDS_WASTE_FREE if world == CARDS
+                  else PROCESS_WASTE_FREE)
     return [("flagship", n, steps, save_at),
             ("drift",) + PROCESS_DRIFT + (None,),
-            ("drift_waste_free",) + PROCESS_WASTE_FREE + (None,),
+            ("drift_waste_free",) + waste_free + (None,),
             ("ale",) + PROCESS_ALE + (None,)]
 
 
@@ -2284,8 +2319,8 @@ def _runs_arg(specs):
                     for spec in specs)
 
 
-def _one_process_legs(torch, dev):
-    """The legs on a one-process mesh of ``PROCESSES`` shards of the card:
+def _one_process_legs(torch, dev, world):
+    """The legs on a one-process mesh of ``world`` shards of the card:
     each run's record (``qinfer_tpu_torch.parallel.runs.drive``) by name,
     and the trials' digests on the one-process trial mesh."""
     from qinfer_tpu_torch import (AcceleratedPrecessionModel,
@@ -2294,9 +2329,9 @@ def _one_process_legs(torch, dev):
     from qinfer_tpu_torch.parallel.worker import trial_digests
     from qinfer_tpu_torch.perf_testing import perf_test_scan_batch
 
-    mesh = ParticleMesh([dev] * PROCESSES)
+    mesh = ParticleMesh([dev] * world)
     out = {}
-    for name, n, steps, _ in _leg_specs():
+    for name, n, steps, _ in _leg_specs(world):
         t0 = time.perf_counter()
         out[name] = runs.drive(mesh, runs.make_run(mesh, name, n, steps),
                                steps)
@@ -2308,7 +2343,7 @@ def _one_process_legs(torch, dev):
     runner, seeds = perf_test_scan_batch(
         AcceleratedPrecessionModel(), n, UniformDistribution([[0.0, 1.0]]),
         steps, trials, seed=PARALLEL_SEED,
-        mesh=ParticleMesh([dev] * PROCESSES, axis_name="trials"),
+        mesh=ParticleMesh([dev] * world, axis_name="trials"),
         return_runner=True, device=dev)
     record = runner(seeds)
     out["trials"] = {"digests": trial_digests(record),
@@ -2316,15 +2351,16 @@ def _one_process_legs(torch, dev):
     return out
 
 
-def _loaded_checksums(torch, dev, path):
-    """The resample-move leg's checkpoint (saved by the ranks) loaded into
-    one process, on a one-process mesh of 2 · ``PROCESSES`` shards: the
-    checksums of its weights and locations over ``PROCESSES`` blocks."""
+def _loaded_checksums(torch, dev, path, world):
+    """The resample-move leg's checkpoint (saved by ``world`` ranks)
+    loaded into one process, on a one-process mesh of 2 · ``world``
+    shards: the checksums of its weights and locations over ``world``
+    blocks."""
     from qinfer_tpu_torch.checkpoint import load_updater
     from qinfer_tpu_torch.parallel import ParticleMesh, runs
 
     n, _, save_at = PROCESS_FLAGSHIP
-    run = runs.make_run(ParticleMesh([dev] * (2 * PROCESSES)), "flagship",
+    run = runs.make_run(ParticleMesh([dev] * (2 * world)), "flagship",
                         n, 0, seed=runs.SEED + 2)
     load_updater(path, run.updater)
     u = run.updater
@@ -2332,7 +2368,7 @@ def _loaded_checksums(torch, dev, path):
             f"processes flagship: the archive loaded into one process "
             f"holds {u.n_particles} particles and "
             f"{len(u.normalization_record)} steps")
-    blocks = ParticleMesh([dev] * PROCESSES)
+    blocks = ParticleMesh([dev] * world)
     return [runs.checksums(blocks, u.particle_weights).tolist(),
             runs.checksums(blocks, u.particle_locations).tolist()]
 
@@ -2372,7 +2408,8 @@ def _walls(a, o):
     runs.drive`), each with its collectives."""
     return (f"the run {a['local_run_s']:.4f} s on the ranks "
             f"({a['run_collective_calls']} collectives a rank taking "
-            f"{a['local_run_collective_s']:.4f} s), {o['local_run_s']:.4f} s "
+            f"{a['local_run_collective_s']:.4f} s by "
+            f"{a['collective_timer']}), {o['local_run_s']:.4f} s "
             f"in one process; the record's reads besides "
             f"{a['local_record_s']:.4f} s on the ranks "
             f"({a['record_collective_calls']} collectives taking "
@@ -2380,7 +2417,7 @@ def _walls(a, o):
             f"{o['local_record_s']:.4f} s in one process")
 
 
-def _check_process_legs(torch, dev, card, results, resumed, one, kept,
+def _check_process_legs(torch, dev, card, world, results, resumed, one, kept,
                         loaded):
     """Phase 5's legs of the rest of the engine on the ranks, against
     ``one`` (:func:`_one_process_legs`): (d) the resample-move recipe
@@ -2407,7 +2444,7 @@ def _check_process_legs(torch, dev, card, results, resumed, one, kept,
             for res in results]
     back = [{line["run"]: line for line in res.get("runs", [])}
             for res in resumed]
-    for name, *_ in _leg_specs():
+    for name, *_ in _leg_specs(world):
         lines = [leg.get(name) for leg in legs]
         require(all(lines) and all(_replicated(a) == _replicated(lines[0])
                                    for a in lines),
@@ -2423,7 +2460,7 @@ def _check_process_legs(torch, dev, card, results, resumed, one, kept,
     a, o = ranks[0], one["flagship"]
     first, _, rel = _held_alike("flagship", ranks, o)
     require(first is not None, "processes flagship: no resample")
-    for r in range(PROCESSES):
+    for r in range(world):
         x, y = ranks[r], back[r].get("flagship", {})
         same = (y.get("resumed")
                 and [y["local_w"][0][0], y["local_x"][0][0]]
@@ -2439,7 +2476,7 @@ def _check_process_legs(torch, dev, card, results, resumed, one, kept,
                       f"step {save_at} on fresh ranks differs from the "
                       f"uninterrupted one")
     require(loaded == [[ranks[r]["local_at_save"][i][0]
-                        for r in range(PROCESSES)] for i in range(2)],
+                        for r in range(world)] for i in range(2)],
             "processes flagship: the archive loaded into one process differs "
             "from the ranks' blocks")
     for rec, where in ((a, "ranks"), (o, "one process")):
@@ -2466,8 +2503,8 @@ def _check_process_legs(torch, dev, card, results, resumed, one, kept,
                 f"{rec['resample_count']} resamples and "
                 f"{rec['local_projections']} projections")
     say("main", f"processes flagship: {n} particles x {steps} steps, "
-                f"{PROCESSES} ranks against the one-process mesh of "
-                f"{PROCESSES} shards: the first resample at step {first}, "
+                f"{world} ranks against the one-process mesh of "
+                f"{world} shards: the first resample at step {first}, "
                 f"the steps through it within rtol {rel:.3g} (the generator "
                 f"and the particles to the bit); fidelity {a['fidelity']:.6f}"
                 f" / {o['fidelity']:.6f} (prior mean "
@@ -2534,11 +2571,16 @@ def _check_process_legs(torch, dev, card, results, resumed, one, kept,
                                   launches=launches[
                                       "streaming_resample_locations"])),
                 timed(f"jacobi_project_lanes_looped {tuple(mats.shape)} "
-                      f"(processes: rank 0's first strict projection)",
-                      lambda a=mats: jac.jacobi_project_lanes_looped(
-                          a, sweeps=EMBEDDED_SWEEPS, trace=2.0, eps=EPS),
-                      lambda a=mats: jac.jacobi_project_lanes_looped_plain(
-                          a, sweeps=EMBEDDED_SWEEPS, trace=2.0, eps=EPS),
+                      f"(processes: rank 0's first strict projection, its "
+                      f"inputs in device memory)",
+                      from_device_memory(
+                          lambda a: jac.jacobi_project_lanes_looped(
+                              a, sweeps=EMBEDDED_SWEEPS, trace=2.0, eps=EPS),
+                          (mats,), 8 * mats.numel()),
+                      from_device_memory(
+                          lambda a: jac.jacobi_project_lanes_looped_plain(
+                              a, sweeps=EMBEDDED_SWEEPS, trace=2.0, eps=EPS),
+                          (mats,), 8 * mats.numel()),
                       no_library="no one PyTorch call projects onto the PSD "
                                  "cone",
                       bound_at=jacobi_bound(mats.shape[0], 32,
@@ -2566,7 +2608,7 @@ def _check_process_legs(torch, dev, card, results, resumed, one, kept,
             require(a["rounds"][:upto] == o["rounds"][:upto],
                     f"processes ale: the rounds differ before step {upto}")
         say("main", f"processes {name}: {a['particles']} particles x "
-                    f"{len(a['norm'])} steps, {PROCESSES} ranks against the "
+                    f"{len(a['norm'])} steps, {world} ranks against the "
                     f"one-process mesh: the designs part at step {alike}, "
                     f"the first resample at step {first}, the steps before "
                     f"both within rtol {rel:.3g}; |mean - truth| / sd "
@@ -2582,7 +2624,7 @@ def _check_process_legs(torch, dev, card, results, resumed, one, kept,
             and t["resample_counts"] == o["resample_counts"],
             "processes trials: the ranks' records differ from the "
             "one-process trial mesh's")
-    mine = count // PROCESSES
+    mine = count // world
     for r, line in enumerate(trials):
         got = line["local_launches"]
         own = sum(line["resample_counts"][r * mine:(r + 1) * mine])
@@ -2592,7 +2634,7 @@ def _check_process_legs(torch, dev, card, results, resumed, one, kept,
                 f"processes trials rank {r}: launches {got} for {mine} "
                 f"trials of {steps_t} steps and {own} resamples")
     say("main", f"processes trials: {count} x {n_t} x {steps_t} on "
-                f"{PROCESSES} ranks equal to the one-process trial mesh to "
+                f"{world} ranks equal to the one-process trial mesh to "
                 f"the bit, {t['wall_s']:.4f} s, {t['collective_calls']} "
                 f"collectives; launches on rank 0 "
                 f"{trials[0]['local_launches']}")
@@ -2600,11 +2642,15 @@ def _check_process_legs(torch, dev, card, results, resumed, one, kept,
 
 
 def run_processes_path(torch, dev, card, config5_mean):
-    """Phase 5: one ensemble sharded over ``PROCESSES`` ranks of a
-    ``torch.distributed`` group, each rank a process of
-    ``qinfer_tpu_torch.parallel.worker`` on the card, gloo staged through
-    host memory (NCCL refuses two ranks on one card), the kernels built
-    already, each rank counting its own launches from 0 before each run.
+    """Phase 5: one ensemble sharded over ``PROCESSES`` ranks of a gloo
+    group, each rank a process of ``qinfer_tpu_torch.parallel.worker`` on
+    card r mod the cards present (on one card the ranks share it, each
+    collective staged through host memory; NCCL refuses two ranks on one
+    card), the kernels built already, each rank counting its
+    own launches from 0 before each run.
+    The runs on the one-process mesh come first (:func:`_one_process`),
+    then the ranks' (:func:`_on_ranks`), then the checks
+    (:func:`_check_processes`).
 
     (a) ``perf_test_scan`` with ``AcceleratedPrecessionModel`` at
     ``PARALLEL``'s 2²² particles (2²¹ a rank) x 256 steps, truth 0.7, seed
@@ -2623,7 +2669,10 @@ def run_processes_path(torch, dev, card, config5_mean):
     ensemble (the counting pass parts the runs there: at 2²² one ulp of a
     running sum near 1 is a quarter of a slot, so an ulp of weight moves
     slots), and the final estimates within 5 combined posterior sd as
-    well.
+    well. Where the designs part first, both t there and the inverse
+    CDF's picks replayed from the same generator state
+    (:func:`_parted_designs`); either way the one-process resampler
+    replayed on the ranks' first resample (:func:`_replayed_first_resample`).
     (b) BASELINE config 5 (``CONFIG5``) over the ranks with the two-level
     resampler: the ranks equal to the bit, |mean − 0.7| < 0.05, K3 once a
     resample; against the same run on the one-process mesh of
@@ -2646,56 +2695,243 @@ def run_processes_path(torch, dev, card, config5_mean):
     Returns ``(each kernel's launches on rank 0's ring run, on its
     resample-move leg and on its trials, timing entries of K1, K3 and K5
     at rank 0's shapes)``."""
-    import tempfile
+    t_phase = time.perf_counter()
+    one = _one_process(torch, dev, PROCESSES)
+    side = _on_ranks(torch, dev, PROCESSES, "gloo")
+    out = _check_processes(torch, dev, card, PROCESSES, one, side,
+                           config5_mean)
+    say("main", f"processes phase: {time.perf_counter() - t_phase:.1f} s "
+                "with its set-up")
+    return out
 
-    from qinfer_tpu_torch import (AcceleratedPrecessionModel, ParticleMesh,
-                                  UniformDistribution)
+
+def _one_process(torch, dev, world):
+    """The process phase's runs on a one-process mesh of ``world`` shards
+    of the card: the precession ring run (its resampler recording its
+    first call), config 5 and the legs (:func:`_one_process_legs`)."""
+    from qinfer_tpu_torch import ParticleMesh, UniformDistribution
     from qinfer_tpu_torch import expdesign_bench as eb
-    from qinfer_tpu_torch.ops import precession as prec
-    from qinfer_tpu_torch.ops import streaming_resample as sr
     from qinfer_tpu_torch.parallel import DistributedLiuWestResampler
+    from qinfer_tpu_torch.parallel.worker import recorders
     from qinfer_tpu_torch.perf_testing import perf_test_scan
 
-    t_phase = time.perf_counter()
     n, steps, _ = PARALLEL
-    mesh = ParticleMesh([dev] * PROCESSES)
-    one_rs = _recording_distributed(mesh, "ring")
+    mesh = ParticleMesh([dev] * world)
+    model, one_rs = recorders(mesh, steps, "ring")
     u, rec = perf_test_scan(
-        AcceleratedPrecessionModel(), n, UniformDistribution([[0.0, 1.0]]),
-        steps, true_mps=[[0.7]], seed=PARALLEL_SEED, resampler=one_rs,
-        sharding=mesh.particle_sharding)
-    one_est, one_resamples = float(rec["est"][-1, 0]), u.resample_count
-    one_sd = float(u.est_covariance_mtx()[0, 0]) ** 0.5
-    one_est_record = rec["est"][:, 0].tolist()
-    one_ess = rec["ess"].tolist()
-    del u, rec
+        model, n, UniformDistribution([[0.0, 1.0]]), steps, true_mps=[[0.7]],
+        seed=PARALLEL_SEED, resampler=one_rs, sharding=mesh.particle_sharding,
+        heuristic_factory=model.heuristic)
+    one = dict(est=float(rec["est"][-1, 0]), resamples=u.resample_count,
+               sd=float(u.est_covariance_mtx()[0, 0]) ** 0.5,
+               est_record=rec["est"][:, 0].tolist(), ess=rec["ess"].tolist(),
+               t_record=torch.cat(model.ts).tolist(), first=one_rs.first,
+               designs=model.designs)
+    del u, rec, model, one_rs
     cn, csteps, ccand = CONFIG5
-    mesh = ParticleMesh([dev] * PROCESSES)
-    one_c5 = eb.run_bench(cn, csteps, ccand, 0, dev,
-                          resampler=DistributedLiuWestResampler(mesh, a=0.98),
-                          mesh=mesh, record=True)
-    del one_c5["state"]
-    one_legs = _one_process_legs(torch, dev)
+    mesh = ParticleMesh([dev] * world)
+    one["c5"] = eb.run_bench(
+        cn, csteps, ccand, 0, dev,
+        resampler=DistributedLiuWestResampler(mesh, a=0.98), mesh=mesh,
+        record=True)
+    del one["c5"]["state"]
+    one["legs"] = _one_process_legs(torch, dev, world)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    return one
+
+
+def _on_ranks(torch, dev, world, backend, resume=True):
+    """The process phase's runs on ``world`` ranks of ``backend``
+    (:func:`_run_ranks`): the precession runs, config 5, the legs and the
+    trials in one launch, each rank writing its kernel inputs; with
+    ``resume``, the resample-move leg resumed on fresh ranks from the
+    first launch's checkpoint, and that checkpoint loaded into one
+    process (:func:`_loaded_checksums`). A dict of ``results``, ``kept``
+    and ``kept_legs`` (each rank's recorded inputs), ``resumed`` and
+    ``loaded``."""
+    import tempfile
+
+    n, steps, _ = PARALLEL
+    cn, csteps, ccand = CONFIG5
+    side = {}
     with tempfile.TemporaryDirectory() as record:
-        results = _run_ranks(torch, "precession,config5,runs,trials",
-                             "--particles", n, "--steps", steps, "--seed",
-                             PARALLEL_SEED, "--config5",
-                             f"{cn},{csteps},{ccand}", "--record", record,
-                             "--runs", _runs_arg(_leg_specs()),
-                             "--checkpoint", record, "--trials",
-                             ",".join(map(str, PROCESS_TRIALS)))
-        kept = [torch.load(os.path.join(record, f"rank{r}.pt"))
-                for r in range(PROCESSES)]
-        kept_legs = [torch.load(os.path.join(record,
-                                             f"flagship_rank{r}.pt"))
-                     for r in range(PROCESSES)]
-        resumed = _run_ranks(torch, "runs", "--runs",
-                             _runs_arg(_leg_specs()[:1]), "--checkpoint",
-                             record, "--resume")
-        loaded = _loaded_checksums(torch, dev,
-                                   os.path.join(record, "flagship"))
+        side["results"] = _run_ranks(
+            torch, world, backend, "card,precession,config5,runs,trials",
+            "--particles", n, "--steps", steps, "--seed", PARALLEL_SEED,
+            "--config5", f"{cn},{csteps},{ccand}", "--record", record,
+            "--runs", _runs_arg(_leg_specs(world)), "--checkpoint", record,
+            "--trials", ",".join(map(str, PROCESS_TRIALS)))
+        side["kept"] = [torch.load(os.path.join(record, f"rank{r}.pt"))
+                        for r in range(world)]
+        side["kept_legs"] = [
+            torch.load(os.path.join(record, f"flagship_rank{r}.pt"))
+            for r in range(world)]
+        if resume:
+            side["resumed"] = _run_ranks(
+                torch, world, backend, "runs", "--runs",
+                _runs_arg(_leg_specs(world)[:1]), "--checkpoint", record,
+                "--resume")
+            side["loaded"] = _loaded_checksums(
+                torch, dev, os.path.join(record, "flagship"), world)
+    return side
+
+
+def _held_first_resample(torch, dev, n, kept, one, ring, first):
+    """The first resample of the precession ring run, met by the ranks and
+    the one process with the same designs: the same generator state and
+    particles, the weights up to the reweights' float order (rtol 1e-5);
+    its two estimates are then two resamples of one weighted ensemble
+    (within 5√2 standard errors)."""
+    gen_state = kept[0]["resample"][0]
+    w = torch.cat([k["resample"][1] for k in kept]).to(dev)
+    x = torch.cat([k["resample"][2] for k in kept]).to(dev)
+    one_gen, one_w, one_x = one["first"]
+    w_rel = float(((w - one_w).abs() / one_w.abs().clamp_min(1e-30)).max())
+    require(all(torch.equal(k["resample"][0], gen_state) for k in kept)
+            and torch.equal(gen_state, one_gen.cpu())
+            and torch.equal(x, one_x) and w_rel <= 1e-5,
+            f"processes: the first resample's inputs differ from the "
+            f"one-process run's (weights by rtol {w_rel})")
+    mu = float(one_w @ one_x[:, 0])
+    se = float(one_w @ (one_x[:, 0] - mu) ** 2) ** 0.5 / math.sqrt(n)
+    d_first = abs(ring["est_record"][first] - one["est_record"][first])
+    say("main", f"processes: the first resample met the one-process run's "
+                f"generator state and particles to the bit and its weights "
+                f"within rtol {w_rel:.3g}; resampled, the estimates differ "
+                f"by {d_first:.3g} (one resample's standard error "
+                f"{se:.3g})")
+    require(d_first < 5 * math.sqrt(2) * se,
+            f"processes: the first resample's estimates differ by "
+            f"{d_first}, more than 5 standard errors of two resamples")
+
+
+def _counting_cdf(torch, w):
+    """The normalized CDF of each row of ``w`` that the counting fill
+    counts over (``resamplers.counting_multiplicities_from_u``)."""
+    from qinfer_tpu_torch.config import EPS
+    from qinfer_tpu_torch.utils import cumsum_last
+
+    cdf = cumsum_last(w)
+    return torch.clamp_max(cdf / torch.clamp_min(cdf[..., -1:], EPS), 1.0)
+
+
+def _replayed_first_resample(torch, dev, world, kept):
+    """The ranks' first resample of the precession ring run against the
+    one-process resampler on the same inputs: a
+    ``DistributedLiuWestResampler`` on a one-process mesh of ``world``
+    shards replays the ranks' recorded first call (the generator state,
+    weights and particles) through its fill, held against the fill each
+    rank recorded. To the bit: the offsets u₂, and the block of
+    particles each shard receives (so the same ancestor shards). Within
+    float order: the received weights to rtol 1e-5 (one process sums
+    ``world`` rows at once, a rank one row), their counting CDFs within
+    δ ≤ 1e-5 (one process scans the rows at once, a rank one row:
+    ``utils.cumsum_last``), and so every particle's first slot within
+    ⌊(n/D)·δ + 1/4⌋ + 1 slots of the rank's (a ceiling of values that
+    differ by (n/D)·δ plus the rounding of two float32 products). Returns
+    the line that says so."""
+    from qinfer_tpu_torch import ParticleMesh
+    from qinfer_tpu_torch.parallel import DistributedLiuWestResampler
+    from qinfer_tpu_torch.parallel.resample import (
+        exchange_blocks, shard_systematic_ancestors)
+    from qinfer_tpu_torch.resamplers import counting_locations_batch_from_u
+
+    gen_state = kept[0]["resample"][0]
+    require(all(torch.equal(k["resample"][0], gen_state) for k in kept),
+            "processes: the ranks' first resamples start from different "
+            "generator states")
+    w = torch.cat([k["resample"][1] for k in kept]).to(dev)
+    x = torch.cat([k["resample"][2] for k in kept]).to(dev)
+    mesh = ParticleMesh([dev] * world)
+    g = torch.Generator(device=dev)
+    g.set_state(gen_state)
+    rs = DistributedLiuWestResampler(mesh, a=0.98, exchange="ring")
+    u1, u2, wv, xv, _ = rs.fill_inputs(g, w, x)
+    recv_w, recv_x = exchange_blocks(mesh, u1, wv, xv, "ring")
+    x_anc, m, starts = counting_locations_batch_from_u(u2, recv_w, recv_x)
+    ranks = [[v.to(dev) for v in k["fill"]] for k in kept]
+    r_u2, r_w, r_x, r_m, r_starts, r_anc = (
+        torch.cat([f[i] for f in ranks]) for i in range(6))
+    nb = recv_w.shape[1]
+    shift = torch.arange(world, device=dev).repeat_interleave(nb) * nb
+    w_rel = float(((recv_w - r_w).abs() / r_w.abs().clamp_min(1e-30)).max())
+    delta = float((_counting_cdf(torch, recv_w) - torch.cat(
+        [_counting_cdf(torch, f[1]) for f in ranks])).abs().max())
+    slots = int((starts - (r_starts + shift)).abs().max())
+    allowed = math.floor(nb * delta + 0.25) + 1
+    require(torch.equal(u2, r_u2) and torch.equal(recv_x, r_x),
+            "processes: the one-process resampler, replayed on the ranks' "
+            "first resample, draws other offsets u2 or sends other blocks")
+    require(w_rel <= 1e-5 and delta <= 1e-5 and slots <= allowed,
+            f"processes: the one-process resampler, replayed on the ranks' "
+            f"first resample, weighs the received blocks by rtol {w_rel}, "
+            f"counts over CDFs {delta} apart and moves a first slot by "
+            f"{slots} (at most {allowed} allowed)")
+    moved = int((x_anc != r_anc).any(dim=-1).sum())
+    anc = shard_systematic_ancestors(u1, wv.sum(dim=1)).tolist()
+    return (f"processes: the one-process resampler of {world} shards, "
+            f"replayed on the ranks' first resample, draws their offsets u2 "
+            f"and sends each shard its block to the bit, the ancestor shards "
+            f"{anc}; the received weights "
+            f"within rtol {w_rel:.3g}, their CDFs within {delta:.3g} (one "
+            f"process scans {world} rows at once, a rank one), every first "
+            f"slot within {slots} of the rank's (at most {allowed}); "
+            f"{int((m != r_m).sum())} of {m.numel()} copy counts and "
+            f"{moved} slots' particles differ")
+
+
+def _parted_designs(torch, dev, ring, one, kept, part):
+    """Where the PGH designs of the ranks' precession ring run and the
+    one-process run part (step ``part``): both t there, and, where both
+    runs kept that step's draws (before the first resample:
+    ``worker.recorders``), the draws replayed from each run's generator
+    state and ensemble (``worker.replay_pgh``), which must give each
+    run's t to the bit, from the same generator state: the particles
+    each run's inverse CDF picked. Returns the line that says so."""
+    from qinfer_tpu_torch.ops.accelerated import AcceleratedPrecessionModel
+    from qinfer_tpu_torch.parallel.worker import replay_pgh
+
+    t_ranks, t_one = ring["t_record"][part], one["t_record"][part]
+    text = (f"processes: the designs part at step {part}: t = {t_ranks!r} "
+            f"on the ranks, {t_one!r} in one process")
+    if part >= min(len(kept[0]["designs"]), len(one["designs"])):
+        return text + " (the draws of that step are not kept)"
+    model = AcceleratedPrecessionModel()
+    state, one_w, one_x = one["designs"][part]
+    blocks = [k["designs"][part] for k in kept]
+    ranks_w = [b[1].to(dev) for b in blocks]
+    t_r, (i_r, j_r) = replay_pgh(model, blocks[0][0], ranks_w,
+                                 [b[2].to(dev) for b in blocks])
+    t_o, (i_o, j_o) = replay_pgh(model, state, [one_w], [one_x])
+    w_rel = float(((torch.cat(ranks_w) - one_w).abs()
+                   / one_w.abs().clamp_min(1e-30)).max())
+    require(all(torch.equal(b[0], state) for b in blocks)
+            and t_r == t_ranks and t_o == t_one,
+            f"processes: step {part}'s PGH draws, replayed, give t = {t_r} "
+            f"over the ranks and {t_o} in one process, or start from "
+            f"different generator states")
+    return (text + f"; replayed from the same generator state, the inverse "
+            f"CDF picked particles {i_r} and {j_r} over the ranks' blocks, "
+            f"{i_o} and {j_o} over the one process's ensemble, the weights "
+            f"there within rtol {w_rel:.3g}")
+
+
+def _check_processes(torch, dev, card, world, one, side, config5_mean):
+    """The checks of :func:`run_processes_path` on the one-process runs
+    ``one`` (:func:`_one_process`) and the ranks' ``side``
+    (:func:`_on_ranks`); ``config5_mean`` (the unsharded run's, or None)
+    is printed beside config 5's. Returns what
+    :func:`run_processes_path` does."""
+    from qinfer_tpu_torch.ops import precession as prec
+    from qinfer_tpu_torch.ops import streaming_resample as sr
+
+    n, steps, _ = PARALLEL
+    cn, csteps, ccand = CONFIG5
+    results, kept = side["results"], side["kept"]
+    timer = results[0]["card"][0]["collective_timer"]
+    one_est, one_resamples, one_sd = one["est"], one["resamples"], one["sd"]
+    one_est_record, one_ess, one_c5 = one["est_record"], one["ess"], one["c5"]
     for task in ("precession", "config5"):
         lines = [res.get(task, []) for res in results]
         require(all(len(ln) == (2 if task == "precession" else 1)
@@ -2725,65 +2961,58 @@ def run_processes_path(torch, dev, card, config5_mean):
                     f"processes rank {r} {run['exchange']}: launches {got} "
                     f"for {steps} steps and {run['resamples']} resamples")
     d_est, d_res = abs(est - one_est), abs(ring["resamples"] - one_resamples)
-    # the first resample leaves uniform weights: ESS n
+    # the runs make the same steps until their PGH designs part (the
+    # inverse CDF over 2²² weights of 2⁻²² rounds otherwise in the two
+    # layouts) or the first resample does, which leaves uniform weights:
+    # ESS n
+    part = next((i for i, (a, b) in enumerate(zip(ring["t_record"],
+                                                   one["t_record"]))
+                 if a != b), steps)
     first = next((i for i, e in enumerate(one_ess) if e >= n * (1 - 1e-4)),
                  None)
-    require(first is not None and abs(ring["ess_record"][first] - n)
-            <= 1e-4 * n, f"processes: the first resample (one-process step "
-                         f"{first}) is not the ranks' too")
+    require(first is not None and (
+        part <= first or abs(ring["ess_record"][first] - n) <= 1e-4 * n),
+        f"processes: the first resample (one-process step {first}, the "
+        f"designs alike through step {part - 1}) is not the ranks' too")
+    alike = min(part, first)
     rel = max((abs(a - b) / abs(b) for a, b in zip(
-        ring["est_record"][:first], one_est_record[:first])), default=0.0)
+        ring["est_record"][:alike], one_est_record[:alike])), default=0.0)
     sd = math.hypot(ring["posterior_sd"], one_sd)
-    say("main", f"processes: {PROCESSES} ranks against the one-process "
-                f"mesh of {PROCESSES} shards: est {est:.9f} / "
+    say("main", f"processes: {world} ranks against the one-process "
+                f"mesh of {world} shards: est {est:.9f} / "
                 f"{one_est:.9f} (|Δ| {d_est:.3g}, combined posterior sd "
                 f"{sd:.3g}), resamples {ring['resamples']} / "
-                f"{one_resamples} (|Δ| {d_res}); the estimates before the "
-                f"first resample (step {first}) within rtol {rel:.3g}")
+                f"{one_resamples} (|Δ| {d_res}); the designs part at step "
+                f"{part}, the first resample at step {first}; the estimates "
+                f"of the {alike} steps before either within rtol {rel:.3g}")
     require(rel <= 1e-5, f"processes: the ranks' estimates part from the "
                          f"one-process mesh's by rtol {rel} before step "
-                         f"{first}")
+                         f"{alike}")
     require(d_est < 1e-4 and d_est < 5 * sd
             and d_res <= PROCESS_RESAMPLE_BAR,
-            f"processes: {PROCESSES} ranks and the one-process mesh differ "
+            f"processes: {world} ranks and the one-process mesh differ "
             f"by {d_est} in the estimate ({sd} combined sd) and {d_res} "
             f"resamples")
-    # the first resample: the ranks meet it with the one-process run's
-    # inputs, up to the reweights' float order; its two estimates are
-    # then two resamples of one weighted ensemble
-    gen_state = kept[0]["resample"][0]
-    w = torch.cat([k["resample"][1] for k in kept]).to(dev)
-    x = torch.cat([k["resample"][2] for k in kept]).to(dev)
-    one_gen, one_w, one_x = one_rs.first
-    w_rel = float(((w - one_w).abs() / one_w.abs().clamp_min(1e-30)).max())
-    require(all(torch.equal(k["resample"][0], gen_state) for k in kept)
-            and torch.equal(gen_state, one_gen.cpu())
-            and torch.equal(x, one_x) and w_rel <= 1e-5,
-            f"processes: the first resample's inputs differ from the "
-            f"one-process run's (weights by rtol {w_rel})")
-    mu = float(one_w @ one_x[:, 0])
-    se = float(one_w @ (one_x[:, 0] - mu) ** 2) ** 0.5 / math.sqrt(n)
-    d_first = abs(ring["est_record"][first] - one_est_record[first])
-    say("main", f"processes: the first resample met the one-process run's "
-                f"generator state and particles to the bit and its weights "
-                f"within rtol {w_rel:.3g}; resampled, the estimates differ "
-                f"by {d_first:.3g} (one resample's standard error "
-                f"{se:.3g})")
-    require(d_first < 5 * math.sqrt(2) * se,
-            f"processes: the first resample's estimates differ by "
-            f"{d_first}, more than 5 standard errors of two resamples")
-    del w, x, one_w, one_x, one_rs
+    if part < steps:
+        say("main", _parted_designs(torch, dev, ring, one, kept, part))
+    if part > first:
+        _held_first_resample(torch, dev, n, kept, one, ring, first)
+    else:
+        say("main", f"processes: the designs part at step {part}, before "
+                    f"the first resample: from there the runs are held by "
+                    f"law")
+    say("main", _replayed_first_resample(torch, dev, world, kept))
     for run in (ring, butterfly):
         stage = [res["precession"][run is butterfly]["local_collective_s"]
                  for res in results]
         say("main", f"processes {run['exchange']}: {run['wall_s']:.4f} s "
-                    f"for {n} particles x {steps} steps on {PROCESSES} "
-                    f"ranks of the card = {run['updates_per_s']:.6g} "
+                    f"for {n} particles x {steps} steps on {world} "
+                    f"ranks = {run['updates_per_s']:.6g} "
                     f"particle-updates/s, est {run['est']:.6f}, "
                     f"{run['resamples']} resamples, {run['collective_calls']}"
                     f" collectives a rank taking {min(stage):.4f}-"
-                    f"{max(stage):.4f} s (gloo, staged through host memory),"
-                    f" launches a rank {run['local_launches']} on {card}")
+                    f"{max(stage):.4f} s (by {timer}), launches a rank "
+                    f"{run['local_launches']} on {card}")
     c5 = results[0]["config5"][0]
     got = c5["local_launches"]
     require(abs(c5["posterior_mean"] - 0.7) < 0.05,
@@ -2808,8 +3037,8 @@ def run_processes_path(torch, dev, card, config5_mean):
     rel = max((abs(a - b) / abs(b) for a, b in zip(
         c5["mean_record"][:alike], one_c5["mean_record"][:alike])),
         default=0.0)
-    say("main", f"processes config 5: {PROCESSES} ranks against the "
-                f"one-process mesh of {PROCESSES} shards: posterior mean "
+    say("main", f"processes config 5: {world} ranks against the "
+                f"one-process mesh of {world} shards: posterior mean "
                 f"{c5['posterior_mean']:.9f} / {one_c5['posterior_mean']:.9f}"
                 f" (|Δ| {d_mean:.3g}, combined posterior sd {sd:.3g}), "
                 f"resamples {c5['resamples']} / {one_c5['resamples']} (|Δ| "
@@ -2822,20 +3051,22 @@ def run_processes_path(torch, dev, card, config5_mean):
             f"part from the one-process mesh's by rtol {rel} before step "
             f"{alike}, or their first resample comes at another step")
     require(d_mean < 5 * sd and d_res <= PROCESS_RESAMPLE_BAR,
-            f"processes config 5: {PROCESSES} ranks and the one-process "
+            f"processes config 5: {world} ranks and the one-process "
             f"mesh differ by {d_mean} in the mean ({sd} combined sd) and "
             f"{d_res} resamples")
-    say("main", f"processes config 5 on {PROCESSES} ranks: "
+    say("main", f"processes config 5 on {world} ranks: "
                 f"{c5['wall_s']:.4f} s for {c5['particles']} particles x "
                 f"{csteps} steps x {ccand} candidates = "
                 f"{c5['particle_updates_per_s']:.6g} particle-updates/s, "
                 f"posterior mean {c5['posterior_mean']:.6f} "
-                f"(|Δ| {abs(c5['posterior_mean'] - config5_mean):.3g} from "
-                f"the unsharded plain Liu-West run's {config5_mean:.6f}), "
-                f"{c5['resamples']} resamples, {c5['collective_calls']} "
+                + (f"(|Δ| {abs(c5['posterior_mean'] - config5_mean):.3g} "
+                   f"from the unsharded plain Liu-West run's "
+                   f"{config5_mean:.6f}), " if config5_mean is not None
+                   else "")
+                + f"{c5['resamples']} resamples, {c5['collective_calls']} "
                 f"collectives a rank over warm-up and timed run taking "
-                f"{c5['local_collective_s']:.4f} s (rank 0), launches over "
-                f"both runs {got} on {card}")
+                f"{c5['local_collective_s']:.4f} s (rank 0, by {timer}), "
+                f"launches over both runs {got} on {card}")
 
     # (c) the kernels at the ranks' shapes, on each rank's own inputs
     for r, rank in enumerate(kept):
@@ -2863,9 +3094,8 @@ def run_processes_path(torch, dev, card, config5_mean):
             k1 = (omega, w, t, outcome, k1_err)
             k3 = (m, starts, flat, rows)
     legs_launches, trials_launches, leg_entries = _check_process_legs(
-        torch, dev, card, results, resumed, one_legs, kept_legs, loaded)
-    say("main", f"processes phase: {time.perf_counter() - t_phase:.1f} s "
-                "with its set-up")
+        torch, dev, card, world, results, side["resumed"], one["legs"],
+        side["kept_legs"], side["loaded"])
     launches = ring["local_launches"]
     omega, w, t, outcome, k1_err = k1
     nk = omega.shape[0]
@@ -2904,16 +3134,224 @@ def run_processes_path(torch, dev, card, config5_mean):
             [k1_entry, k3_entry] + leg_entries)
 
 
+def run_one_rank_nccl(torch, dev, card):
+    """Phase 5: a one-rank NCCL group on the card runs the worker's
+    ``collectives`` task. Its results equal those of the one-process
+    mesh of one shard: the collectives on the fixed blocks and the
+    engine's values to the bit (``parallel.worker.fixed_blocks``,
+    ``engine_values``), but for the five draws of ``sample``, which a
+    process mesh draws by the inverse CDF over the ranks and one process
+    multinomially: those must be rows of the ensemble. The checkpoint
+    reloads on the rank, and its collectives were timed by CUDA
+    events."""
+    from qinfer_tpu_torch.parallel import ParticleMesh
+    from qinfer_tpu_torch.parallel.worker import engine_values, fixed_blocks
+
+    t0 = time.perf_counter()
+    got = _run_ranks(torch, 1, "nccl", "collectives")[0]["collectives"][0]
+    mesh = ParticleMesh([dev])
+    u, want = engine_values(mesh)
+    block = fixed_blocks(mesh)
+    rows = set(u.particle_locations[:, 0].tolist())
+    sample = got["engine"].pop("sample")
+    want.pop("sample")
+    require(got["collective_timer"] == "CUDA events on the current stream"
+            and got["spans_processes"] and got["n_devices"] == 1,
+            f"one-rank NCCL: {got['n_devices']} ranks timed by "
+            f"{got['collective_timer']}")
+    require(got["engine"] == json.loads(json.dumps(want)),
+            f"one-rank NCCL: the engine's values {got['engine']} differ from "
+            f"the one-process mesh's {want}")
+    require(got["psum"] == mesh.psum(block).tolist()
+            and got["all_gather"] == mesh.all_gather(block).tolist()
+            and all(got["local_ppermute"][str(k)]
+                    == mesh.ppermute(block, k)[0].tolist()
+                    for k in (-1, 0, 1)),
+            "one-rank NCCL: the collectives differ from the one-process "
+            "mesh's")
+    require(all(r[0] in rows for r in sample) and got["reloaded"],
+            f"one-rank NCCL: the draws {sample} are not all particles, or "
+            f"the checkpoint did not reload ({got['reloaded']})")
+    say("main", f"one-rank NCCL group on {got['device']}: psum, all_gather, "
+                f"ppermute and the engine's values ({', '.join(want)}) equal "
+                f"the one-process mesh of one shard to the bit, the draws "
+                f"particles of the ensemble, the checkpoint reloaded; "
+                f"{time.perf_counter() - t0:.1f} s with the process's start, "
+                f"on {card}")
+
+
+def _timing_key(key):
+    """Whether a worker's RESULT key holds a time, a rate, a clock's name
+    or a memory peak (the rest of a line is what a run computed)."""
+    return (key.endswith("_s") or key in ("collective_timer",
+                                          "peak_memory_bytes"))
+
+
+def _same_bits(nccl, gloo):
+    """Bar (b) of :func:`run_cards`: each rank's every RESULT line under
+    NCCL equals the same rank's under gloo, all but its times
+    (:func:`_timing_key`): the same bits, counts and checksums."""
+    for r, (a, b) in enumerate(zip(nccl["results"], gloo["results"])):
+        for task in ("precession", "config5", "runs", "trials"):
+            require(len(a[task]) == len(b[task]),
+                    f"cards: rank {r}'s {task} lines differ in number")
+            for x, y in zip(a[task], b[task]):
+                differ = sorted(k for k in set(x) | set(y)
+                                if not _timing_key(k) and x.get(k) != y.get(k))
+                require(not differ,
+                        f"cards: rank {r}'s {task} "
+                        f"{x.get('run', x.get('exchange', ''))} under NCCL "
+                        f"differs from gloo's in {differ}")
+
+
+def _collectives_line(what, nccl, gloo, one_wall=None):
+    """One line of collectives a rank under NCCL against gloo on the same
+    cards: ``nccl`` and ``gloo`` each rank's RESULT line of one run."""
+    def spread(lines, key):
+        vals = [ln[key] for ln in lines]
+        return f"{min(vals):.4f}-{max(vals):.4f}"
+
+    key = ("local_run_collective_s" if "local_run_collective_s" in nccl[0]
+           else "local_collective_s")
+    calls = ("run_collective_calls" if "run_collective_calls" in nccl[0]
+             else "collective_calls")
+    wall = "local_run_s" if "local_run_s" in nccl[0] else "wall_s"
+    say("main", f"cards {what}: NCCL {nccl[0][calls]} collectives a rank "
+                f"taking {spread(nccl, key)} s ({nccl[0]['collective_timer']}"
+                f"), the run {spread(nccl, wall)} s; gloo {gloo[0][calls]} "
+                f"taking {spread(gloo, key)} s ({gloo[0]['collective_timer']}"
+                f"), the run {spread(gloo, wall)} s"
+                + (f"; one process {one_wall:.4f} s" if one_wall is not None
+                   else ""))
+
+
+def card_lines(query="name,power.limit"):
+    """Every card's ``query`` fields as nvidia-smi reports them
+    (``--query-gpu``, ``csv,noheader``), a line each."""
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    require(out.returncode == 0 and out.stdout.strip(),
+            f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip()
+
+
+def power_limits():
+    """Every card's power limit as nvidia-smi reports it, by its UUID
+    (without ``GPU-``)."""
+    rows = [line.split(", ") for line in
+            card_lines("uuid,power.limit").splitlines()]
+    return {uuid.removeprefix("GPU-"): limit for uuid, limit in rows}
+
+
+def run_cards(torch, dev, card):
+    """``--cards 4``: the process phase's legs over ``CARDS`` ranks, one a
+    card, (1) by NCCL (the precession runs, config 5, the legs and the
+    trials, then the resample-move leg resumed on fresh NCCL ranks and
+    its archive loaded into one process: :func:`_on_ranks`), (2) by gloo
+    on the same cards, (3) on a one-process mesh of ``CARDS`` shards of
+    card 0 (:func:`_one_process`), at the process phase's widths but the
+    waste-free leg's ``CARDS_WASTE_FREE``. Its bars: (a) under NCCL the
+    ranks agree to the bit; (b) each rank's NCCL lines equal its gloo
+    lines to the bit, but for their times (:func:`_same_bits`); (c)
+    against the one-process mesh, the process phase's bars; (d) the
+    resume on fresh NCCL ranks to the bit, and the archive loaded into
+    one process equal to the ranks' blocks; (e) each rank's K1 (n =
+    2²⁰), K3 (1 x 2²⁰ rows, and 1 x 12 500 rows at d = 255) and K5
+    ((12 500, 32, 32)) on its recorded inputs equal to their plain
+    versions, and rank 0's timed from device memory; (f) each rank's card
+    (name, PCI bus id and UUID from the rank, power limit from
+    nvidia-smi), all bus ids and UUIDs distinct. Prints ``nvidia-smi topo -m`` (or why it cannot) and CUDA's
+    peer access between the cards first, and each leg's collectives a
+    rank under NCCL and gloo. Returns the kernels' results (K1, K3, K5),
+    each with its launches on every rank (``launches_ranks``;
+    ``launches``: rank 0's)."""
+    import subprocess
+
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True, timeout=60)
+    print(topo.stdout.rstrip() or topo.stderr.rstrip(), flush=True)
+    peers = [[i == j or torch.cuda.can_device_access_peer(i, j)
+              for j in range(CARDS)] for i in range(CARDS)]
+    say("main", f"cards: peer access between the cards (CUDA), row i "
+                f"column j: {peers}")
+    t_phase = time.perf_counter()
+    nccl = _on_ranks(torch, dev, CARDS, "nccl")
+    say("main", f"cards: {CARDS} NCCL ranks and the resume on fresh ranks in "
+                f"{time.perf_counter() - t_phase:.1f} s")
+    ids = [res["card"][0] for res in nccl["results"]]
+    limits = power_limits()
+    for r, line in enumerate(ids):
+        info = line["local_card"]
+        require(info["uuid"] in limits,
+                f"cards: nvidia-smi lists no card of UUID {info['uuid']}: "
+                f"{limits}")
+        say("main", f"cards rank {r} on {line['device']}: {info['name']}, "
+                    f"PCI bus {info['pci_bus_id']}, UUID {info['uuid']}, "
+                    f"power limit {limits[info['uuid']]} (nvidia-smi)")
+    require(len({ln["device"] for ln in ids}) == CARDS
+            and all(len({ln["local_card"][k] for ln in ids}) == CARDS
+                    for k in ("pci_bus_id", "uuid")),
+            f"cards: the {CARDS} ranks do not hold {CARDS} distinct cards: "
+            f"{ids}")
+    gloo = _on_ranks(torch, dev, CARDS, "gloo", resume=False)
+    _same_bits(nccl, gloo)
+    say("main", f"cards: every rank's lines of the precession runs, config "
+                f"5, the legs and the trials under NCCL equal its gloo lines "
+                f"to the bit, but for their times")
+    one = _one_process(torch, dev, CARDS)
+    entries = _check_processes(torch, dev, card, CARDS, one, nccl, None)[-1]
+    for task in ("precession", "config5", "runs", "trials"):
+        for i, line in enumerate(nccl["results"][0][task]):
+            what = line.get("run", line.get("exchange", ""))
+            _collectives_line(
+                f"{task} {what}".strip(),
+                [res[task][i] for res in nccl["results"]],
+                [res[task][i] for res in gloo["results"]],
+                one["legs"][what]["local_run_s"] if task == "runs" else None)
+    say("main", f"cards: the phase {time.perf_counter() - t_phase:.1f} s")
+    # each kernel's launches on every rank's run of the path that carries
+    # it: the ring run (K1-K3), the resample-move leg (K5, K6)
+    ranks = {name: [res[task][0]["local_launches"][name]
+                    for res in nccl["results"]]
+             for name, task in (("fused_precession_update", "precession"),
+                                ("precession_pr0", "precession"),
+                                ("streaming_resample_locations",
+                                 "precession"),
+                                ("jacobi_project_lanes_looped", "runs"),
+                                ("jacobi_eigh_lanes", "runs"))}
+    say("main", f"cards: launches a rank {ranks}")
+    timers, rest = [], []
+    for e in entries:
+        name = e["attach"]["kernel"]
+        if name in [t["result"]["name"] for t in timers]:
+            rest.append(e)
+            continue
+        result = kernel_result(name, shape=e["result"], max_abs_err=0.0,
+                               launches_ranks=ranks[name])
+        result.update((k, v) for k, v in e["attach"].items() if k != "kernel")
+        timers.append(dict(e, result=result, attach=None))
+    return time_kernels(timers, rest)
+
+
 def main(argv):
     kernels_only = argv == ["--kernels-only"]
-    require(not argv or kernels_only,
-            f"usage: chip_smoke.py [--kernels-only], got {argv}")
+    on_cards = argv == ["--cards", str(CARDS)]
+    require(not argv or kernels_only or on_cards,
+            f"usage: chip_smoke.py [--kernels-only | --cards {CARDS}], got "
+            f"{argv}")
     sys.path.insert(0, ROOT)
     try:
         import torch
     except ImportError as exc:
         raise SmokeFailure(f"torch is not installed: {exc}")
     require(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+    present = torch.cuda.device_count()
+    require(not on_cards or present >= CARDS,
+            f"--cards {CARDS} runs one rank on each of {CARDS} cards, and "
+            f"{present} are present: it runs on no fewer")
     try:
         from qinfer_tpu_torch import kernels
         from qinfer_tpu_torch.bench import card_label
@@ -2947,6 +3385,15 @@ def main(argv):
             ln.strip() for ln in part.splitlines()
             if "stack frame" in ln or "registers" in ln))
 
+    if on_cards:
+        results = run_cards(torch, dev, card)
+        require("jax" not in sys.modules, "JAX was imported")
+        print(json.dumps({"kernels": results}))
+        print(card_lines(), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": present}}))
+        return
     timers, extra = check_kernels(torch, dev)
     jac_timers, jac_extra = check_jacobi_kernels(torch, dev)
     if kernels_only:
@@ -2981,6 +3428,7 @@ def main(argv):
     (process_launches, process_legs_launches, process_trials_launches,
      process_entries) = run_processes_path(torch, dev, card, config5_mean)
     extra.extend(process_entries)
+    run_one_rank_nccl(torch, dev, card)
     extra.append(late_step_k1(torch, dev)[0])
     results = time_kernels(timers + jac_timers, extra + jac_extra)
     require("jax" not in sys.modules, "JAX was imported")

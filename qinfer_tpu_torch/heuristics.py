@@ -117,7 +117,9 @@ class PGH(Heuristic):
     The second draw excludes the first particle's index outright (the
     distribution of the reference's redraw-until-distinct loop, with no
     loop); the distance is clamped below by ``min_separation`` for exact
-    location ties between distinct particles.
+    location ties between distinct particles. ``maxiters`` (the
+    reference's redraw bound) is kept, as the JAX package keeps it; no
+    loop reads it.
 
     An updater sharded across processes (its ``sharding`` on a mesh that
     spans them) draws both particles by :func:`mesh_inverse_cdf`, the
@@ -126,13 +128,14 @@ class PGH(Heuristic):
     """
 
     def __init__(self, updater, inv_field="x_", t_field="t",
-                 inv_func=None, t_func=None, other_fields=None,
-                 min_separation=1e-12):
+                 inv_func=None, t_func=None, maxiters=10,
+                 other_fields=None, min_separation=1e-12):
         super().__init__(updater)
         self.inv_field = inv_field
         self.t_field = t_field
         self.inv_func = inv_func
         self.t_func = t_func
+        self.maxiters = int(maxiters)
         self.other_fields = dict(other_fields or {})
         self.min_separation = float(min_separation)
 

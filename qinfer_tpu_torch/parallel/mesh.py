@@ -37,11 +37,15 @@ A mesh lies in one of two layouts:
   ``batch_isend_irecv`` pair. Under gloo a CUDA tensor is staged through
   host memory by one copy out and one back (:meth:`ParticleMesh._out`,
   :meth:`ParticleMesh._in`): gloo sends no CUDA tensor. That staging is
-  the gloo route, chosen by the backend; under NCCL nothing is staged.
-  The NCCL route is unverified: no machine this port was measured on has
-  two cards, and NCCL refuses two ranks on one card.
-  ``collective_seconds`` and ``collective_calls`` count the wall time and
-  number of the group's collectives, staging included.
+  the gloo route, chosen by the backend; under NCCL nothing is staged,
+  and each rank holds its own card (one rank a card: NCCL refuses two
+  ranks on one).
+  ``collective_calls`` counts the group's collectives and
+  ``collective_seconds`` their time, by the clock ``collective_timer``
+  names: under gloo the host's (after the card's queued work, staging
+  included); under NCCL, whose calls only queue work on the card, CUDA
+  events on the current stream around each call, summed when the
+  seconds are read (one wait for the card then, none a collective).
 
 In either layout the engine draws its per-particle values (a keyed
 likelihood's noise, a time-dependent model's step, the moves' proposals
@@ -56,6 +60,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
+import inspect
 import time
 
 import torch
@@ -151,6 +156,7 @@ class ParticleMesh:
     def _start(self, axis_name, spans_processes):
         self.axis_name = str(axis_name)
         self.spans_processes = spans_processes
+        self._events = False
         self.collective_seconds = 0.0
         self.collective_calls = 0
 
@@ -165,6 +171,10 @@ class ParticleMesh:
         # gloo sends no CUDA tensor: stage through host memory
         self._staged = (self.backend == "gloo"
                         and self.devices[0].type == "cuda")
+        self._events = self.backend == "nccl"
+        if self._events and self.devices[0].type != "cuda":
+            raise ValueError(f"an NCCL group's shards lie on cards, not on "
+                             f"{self.devices[0]}")
 
     @property
     def n_devices(self):
@@ -252,18 +262,69 @@ class ParticleMesh:
         """Inverse of :meth:`shard`: ``(L·n/D, ...)``."""
         return stacked.reshape((-1,) + tuple(stacked.shape[2:]))
 
+    @property
+    def collective_timer(self):
+        """The clock of ``collective_seconds``."""
+        if self._events:
+            return "CUDA events on the current stream"
+        if self._staged:
+            return ("host clock after a device sync (staged through host "
+                    "memory)")
+        return "host clock"
+
+    @property
+    def collective_seconds(self):
+        """The time of the group's collectives so far (see the module);
+        under NCCL, reading it waits for the last collective's end."""
+        if self._pending:
+            self._pending[-1][1].synchronize()
+            self._fold(len(self._pending))
+        return self._seconds
+
+    @collective_seconds.setter
+    def collective_seconds(self, value):
+        self._seconds = float(value)
+        self._pending = []
+
+    def _fold(self, k):
+        """Add the first ``k`` timed collectives (their end events done)
+        to the seconds and drop their events."""
+        self._seconds += sum(a.elapsed_time(b)
+                             for a, b in self._pending[:k]) / 1e3
+        del self._pending[:k]
+
     @contextlib.contextmanager
     def _collective(self):
-        """Count one collective of the group and its wall time (staging
-        included; the card's queued work is waited for first, so it is
-        not counted)."""
+        """Count one collective of the group and its time: under NCCL a
+        pair of CUDA events on the current stream around it, summed by
+        ``collective_seconds`` (the pairs the card has passed are summed
+        here first, with no wait, so few stay pending); else the host's
+        wall time, staging included, after the card's queued work (not
+        counted)."""
+        if self._events:
+            done = 0
+            while (done < len(self._pending)
+                   and self._pending[done][1].query()):
+                done += 1
+            self._fold(done)
+            stream = torch.cuda.current_stream(self.device)
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            try:
+                yield
+            finally:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record(stream)
+                self._pending.append((start, end))
+                self.collective_calls += 1
+            return
         if self._staged:
             torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
         try:
             yield
         finally:
-            self.collective_seconds += time.perf_counter() - t0
+            self._seconds += time.perf_counter() - t0
             self.collective_calls += 1
 
     def _out(self, tensor):
@@ -325,7 +386,10 @@ class ParticleMesh:
         process)."""
         if self.spans_processes:
             with self._collective():
-                dist.barrier()
+                if self.backend == "nccl":
+                    dist.barrier(device_ids=[self.device.index])
+                else:
+                    dist.barrier()
 
     def axis_index(self, device=None):
         """The local shards' indices on the mesh axis: ``arange(D)`` in one
@@ -507,7 +571,12 @@ def initialize_multihost(coordinator_address=None, num_processes=None,
     a wrong configuration never becomes a run in one process.
 
     :param str backend: ``'gloo'`` (the CPU, and a card through host
-        memory) or ``'nccl'`` (cards only; unverified, see the module).
+        memory) or ``'nccl'`` (cards only, one rank a card: make the
+        rank's card the current device first, ``torch.cuda.set_device``).
+        Under NCCL the current card is bound to the group (``device_id``,
+        where the installed torch takes it), whose communicator then
+        starts at once, with a barrier over the ranks before any
+        point-to-point exchange.
     """
     if coordinator_address is None and num_processes in (None, 1):
         return
@@ -526,8 +595,16 @@ def initialize_multihost(coordinator_address=None, num_processes=None,
     url = coordinator_address
     if url is not None and "://" not in url:
         url = f"tcp://{url}"
+    opts = {}
+    if backend == "nccl":
+        card = _normalized("cuda")
+        if "device_id" in inspect.signature(
+                dist.init_process_group).parameters:
+            opts["device_id"] = card
     dist.init_process_group(backend=backend, init_method=url,
                             world_size=-1 if num_processes is None
                             else int(num_processes),
                             rank=-1 if process_id is None
-                            else int(process_id))
+                            else int(process_id), **opts)
+    if backend == "nccl":
+        dist.barrier(device_ids=[card.index])

@@ -4,19 +4,31 @@ the JAX package's ``tests/_multiprocess_worker.py``).
 Start one process a rank, all with the same arguments but ``--rank``::
 
     python -m qinfer_tpu_torch.parallel.worker --rank R --world W \\
-        --init-method file:///tmp/store --tasks jax,precession [--cpu]
+        --init-method file:///tmp/store --tasks jax,precession \\
+        [--backend gloo|nccl] [--cpu]
 
-The ranks join a gloo process group (:func:`initialize_multihost`; the
-``--init-method`` is a ``tcp://host:port`` or ``file://`` rendezvous),
-build ``ParticleMesh()`` over the world, one shard a rank, and run the
-tasks in order, each printing one line ``RESULT {json}`` (a task that
-runs twice, as ``precession`` does by the ring and by the butterfly,
-prints two). Every number in a line is the same on every rank unless its
-key says ``local``. The ranks run on the card (``cuda:0``; two ranks
-share it, each collective staged through host memory) and refuse to run
-without one unless ``--cpu`` asks for the CPU.
+The ranks join a process group (:func:`initialize_multihost`; the
+``--init-method`` is a ``tcp://host:port`` or ``file://`` rendezvous) of
+the ``--backend`` (gloo by default), build ``ParticleMesh()`` over the
+world, one shard a rank, and run the tasks in order, each printing one
+line ``RESULT {json}`` (a task that runs twice, as ``precession`` does by
+the ring and by the butterfly, prints two). Every number in a line is the
+same on every rank unless its key says ``local``; ``collective_timer``
+names the clock of the lines' collective seconds
+(``ParticleMesh.collective_timer``). A rank runs on card ``r mod C`` of
+its host's C cards (:func:`card_of`), r its rank on that host
+(:func:`host_slot`: ``LOCAL_RANK`` where the launcher sets it, else the
+world's rank), made its current device before it joins the group: under
+gloo each collective is staged through host memory, and ranks beyond C
+share cards; NCCL takes one card a rank, so more ranks on a host than C
+raise ``ValueError`` naming both counts, and nothing runs (nor drops to
+gloo). The ranks refuse to run without a card unless ``--cpu`` asks for
+the CPU (gloo only).
 
 Tasks:
+
+* ``card``: the rank's card (``local_card``, :func:`card_info`): its
+  name, PCI bus id and UUID.
 
 * ``jax``: the JAX worker's computation: a uniform prior ensemble of
   4096 particles from ``numpy.random.default_rng(0)``, one
@@ -32,15 +44,17 @@ Tasks:
   ``--steps``, truth ω = 0.7, seed ``--seed``, and
   ``DistributedLiuWestResampler`` by the ring and then by the butterfly
   (one line each), after a warm-up run of 8 steps; each run's wall,
-  particle-updates/s, kernel launches on this rank and the wall of the
-  mesh's collectives (host staging included). With ``--record DIR``,
-  each rank then writes ``DIR/rank{R}.pt``: the inputs of the ring run's
-  last K1 call (ω, w, t, outcome), those of its first resample (the
-  generator's state, the rank's weights and particles) and that
-  resample's fill, replayed from them (u₂, the received blocks, and K3's
-  counts, first slots and output), for a caller to hold the kernels
-  against their plain versions at the rank's shapes and the resample
-  against a run in one process.
+  particle-updates/s, kernel launches on this rank, and the number and
+  time of the mesh's collectives (by ``collective_timer``'s clock). With
+  ``--record DIR``, each rank then writes ``DIR/rank{R}.pt``: the inputs
+  of the ring run's last K1 call (ω, w, t, outcome), those of its first
+  resample (the generator's state, the rank's weights and particles) and
+  that resample's fill, replayed from them (u₂, the received blocks, and K3's
+  counts, first slots and output), and each step's PGH draw until then
+  (the generator's state and the rank's ensemble, :func:`recorders`),
+  for a caller to hold the kernels against their plain versions at the
+  rank's shapes, and the resample and the designs against a run in one
+  process (:func:`replay_pgh`).
 * ``config5``: ``expdesign_bench.run_bench`` (BASELINE config 5) at
   ``--config5 N,STEPS,CANDIDATES`` on the mesh, with its per-step
   record.
@@ -79,10 +93,12 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import os
 import shutil
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -91,8 +107,32 @@ from ..config import resolve_device
 from . import runs
 from .mesh import ParticleMesh, initialize_multihost, reducer_of, shard_state
 
-TASKS = ("jax", "exchange", "precession", "config5", "collectives", "runs",
-         "trials")
+TASKS = ("card", "jax", "exchange", "precession", "config5", "collectives",
+         "runs", "trials")
+
+
+def card_of(rank, n_cards):
+    """The card of the host's rank ``rank`` on a host of ``n_cards`` cards
+    (one rank a card while there are cards enough)."""
+    return rank % n_cards
+
+
+def host_slot(rank, world, environ=os.environ):
+    """``(rank on this host, ranks on this host)``: ``LOCAL_RANK`` and
+    ``LOCAL_WORLD_SIZE`` where the launcher sets them (``torchrun``
+    does), else the world's, one host."""
+    return (int(environ.get("LOCAL_RANK", rank)),
+            int(environ.get("LOCAL_WORLD_SIZE", world)))
+
+
+def card_info(device):
+    """``{name, pci_bus_id, uuid}`` of a card, from CUDA's device
+    properties."""
+    props = torch.cuda.get_device_properties(device)
+    return {"name": props.name,
+            "pci_bus_id": f"{props.pci_domain_id:08X}:{props.pci_bus_id:02X}"
+                          f":{props.pci_device_id:02X}.0",
+            "uuid": str(props.uuid).removeprefix("GPU-")}
 
 
 def _counted():
@@ -151,6 +191,11 @@ def _one_update(mesh, state):
     return state, log_norm
 
 
+def task_card(mesh, args):
+    yield {"local_card": (card_info(mesh.device)
+                          if mesh.device.type == "cuda" else None)}
+
+
 def task_jax(mesh, args):
     from ..test_models import SimplePrecessionModel
     from .resample import DistributedLiuWestResampler
@@ -200,19 +245,41 @@ def task_exchange(mesh, args):
     yield out
 
 
-def _recorders(mesh, steps, exchange):
-    """An ``AcceleratedPrecessionModel`` that keeps the inputs of its K1
-    call at the last of ``steps`` steps, and a
-    ``DistributedLiuWestResampler(a=0.98)`` that keeps those of its first
-    call: the generator's state, the weights and the particles."""
+#: the steps whose PGH draws :func:`recorders` keeps, at most
+KEPT_DESIGNS = 16
+
+
+def recorders(mesh, steps, exchange):
+    """An ``AcceleratedPrecessionModel`` that keeps each step's design t
+    (``ts``, on the device) and the inputs of its K1 call at the last of
+    ``steps`` steps, and a ``DistributedLiuWestResampler(a=0.98)`` that
+    keeps those of its first call: the generator's state, the weights and
+    the particles. The model's ``heuristic`` is a ``heuristic_factory``
+    of ``PGH`` that keeps what each step's draw starts from until that
+    first call (at most ``KEPT_DESIGNS`` steps): the generator's state,
+    the weights and the particles (``designs``; :func:`replay_pgh`)."""
+    from ..heuristics import PGH
     from ..ops.accelerated import AcceleratedPrecessionModel
     from .resample import DistributedLiuWestResampler
 
+    class Heuristic(PGH):
+        def propose(self, generator, weights, locations, idx_exp):
+            if rs.first is None and len(model.designs) < KEPT_DESIGNS:
+                model.designs.append((generator.get_state(), weights.clone(),
+                                      locations.clone()))
+            return super().propose(generator, weights, locations, idx_exp)
+
     class Model(AcceleratedPrecessionModel):
         calls, last = 0, None
+        heuristic = Heuristic
+
+        def __init__(self):
+            super().__init__()
+            self.ts, self.designs = [], []
 
         def fused_reweight(self, weights, locations, outcome, expparams):
             self.calls += 1
+            self.ts.append(expparams["t"].reshape(-1)[:1])
             if self.calls == steps:
                 self.last = (locations[:, 0].clone(), weights.clone(),
                              float(expparams["t"].reshape(-1)[0]),
@@ -228,7 +295,65 @@ def _recorders(mesh, steps, exchange):
                 self.first = (generator.get_state(), w.clone(), x.clone())
             return super().call_with_diagnostics(model, generator, w, x)
 
-    return Model(), Resampler(mesh, a=0.98, exchange=exchange)
+    model, rs = Model(), Resampler(mesh, a=0.98, exchange=exchange)
+    return model, rs
+
+
+class _Ranks:
+    """What :func:`~qinfer_tpu_torch.heuristics.mesh_inverse_cdf` sees of
+    its mesh, as rank ``rank`` of the ranks whose blocks' totals are
+    ``totals`` (D,): their first all-gather; the second, of the owners'
+    rows, is not read here."""
+
+    def __init__(self, totals, rank):
+        self.totals, self.rank = totals, rank
+        self.n_devices = totals.shape[0]
+        self.gathers = 0
+
+    def all_gather(self, stacked):
+        self.gathers += 1
+        if self.gathers == 1:
+            return self.totals
+        return stacked.expand((self.n_devices,) + tuple(stacked.shape[1:]))
+
+
+def replay_pgh(model, state, weights, locations):
+    """The experiment ``PGH`` proposes from the generator state ``state``
+    over an ensemble held as the blocks of its shards, ``weights`` [(n/D,)]
+    and ``locations`` [(n/D, d)], in one process: one block is a
+    one-process run's (``heuristics.categorical_inverse_cdf``), D blocks
+    the ranks' of a mesh across processes (``heuristics.mesh_inverse_cdf``
+    on each block, as its rank runs it). ``(t, (i, j))``: the design, and
+    the two draws' indices in the whole ensemble."""
+    from ..config import EPS
+    from ..heuristics import PGH, categorical_inverse_cdf, mesh_inverse_cdf
+    from ..utils import cumsum_last
+
+    dev = weights[0].device
+    g = torch.Generator(device=dev)
+    g.set_state(state)
+    ps = [torch.clamp_min(w, EPS) for w in weights]
+    picks = []
+    for _ in range(2):
+        if len(ps) == 1:
+            i = categorical_inverse_cdf(g, ps[0])
+            picks.append((0, i))
+            ps[0] = ps[0].scatter(0, i, 0.0)
+            continue
+        totals = torch.cat([cumsum_last(p)[-1:] for p in ps])
+        drawn = g.get_state()
+        shard = int(mesh_inverse_cdf(g, ps[0], locations[0],
+                                     _Ranks(totals, 0))[1])
+        g.set_state(drawn)  # the owner's draw, from the same uniform
+        _, _, i, _ = mesh_inverse_cdf(g, ps[shard], locations[shard],
+                                      _Ranks(totals, shard))
+        picks.append((shard, i))
+        ps[shard] = ps[shard].scatter(0, i, 0.0)
+    x1, x2 = (locations[s][i] for s, i in picks)
+    eps = PGH(types.SimpleNamespace(model=model))._fields(x1, x2)
+    n_block = weights[0].shape[0]
+    return (float(eps["t"].reshape(-1)[0]),
+            tuple(s * n_block + int(i) for s, i in picks))
 
 
 def _record_kernel_inputs(mesh, model, rs, path):
@@ -247,6 +372,8 @@ def _record_kernel_inputs(mesh, model, rs, path):
     omega, k1_w, t, outcome = model.last
     torch.save({"k1": (omega.cpu(), k1_w.cpu(), t, outcome),
                 "resample": (gen_state, w.cpu(), x.cpu()),
+                "designs": [(s, dw.cpu(), dx.cpu())
+                            for s, dw, dx in model.designs],
                 "fill": tuple(v.cpu() for v in (u2, recv_w, recv_x, m,
                                                 starts, x_anc))}, path)
 
@@ -260,24 +387,24 @@ def task_precession(mesh, args):
     prior = UniformDistribution([[0.0, 1.0]])
     n, steps, dev = args.particles, args.steps, mesh.device
 
-    def run(model, resampler, n_steps):
+    def run(model, resampler, n_steps, heuristic=None):
         return perf_test_scan(
             model, n, prior, n_steps, true_mps=[[0.7]], seed=args.seed,
             resampler=resampler, sharding=mesh.particle_sharding,
-            device=dev)
+            device=dev, heuristic_factory=heuristic)
 
     run(AcceleratedPrecessionModel(), DistributedLiuWestResampler(
         mesh, a=0.98, exchange="ring"), 8)  # warm-up
     finals = {}
     for exchange in ("ring", "butterfly"):
-        model, rs = _recorders(mesh, steps, exchange)
+        model, rs = recorders(mesh, steps, exchange)
         if exchange == "ring":
             kept = (model, rs)
         _zero_counts()
         mesh.collective_seconds, mesh.collective_calls = 0.0, 0
         _sync(dev)
         t0 = time.perf_counter()
-        u, rec = run(model, rs, steps)
+        u, rec = run(model, rs, steps, model.heuristic)
         _sync(dev)
         wall = time.perf_counter() - t0
         launches = _counts()
@@ -291,6 +418,7 @@ def task_precession(mesh, args):
             "min_n_ess": float(u.state.min_n_ess),
             "est_record": rec["est"][:, 0].tolist(),
             "ess_record": rec["ess"].tolist(),
+            "t_record": torch.cat(model.ts).tolist(),
             "posterior_sd": float(u.est_covariance_mtx()[0, 0]) ** 0.5,
             "finite": bool(torch.isfinite(u.particle_weights).all()
                            and torch.isfinite(u.particle_locations).all()),
@@ -326,17 +454,49 @@ def task_config5(mesh, args):
     yield r
 
 
-def task_collectives(mesh, args):
-    from ..checkpoint import load_updater, save_updater
+def fixed_blocks(mesh):
+    """The local stacked view of a fixed (10 D, 2) tensor on ``mesh``:
+    shard s's block is rows [10 s, 10 s + 10)."""
+    rows = torch.arange(20, dtype=torch.float32,
+                        device=mesh.device).reshape(10, 2)
+    return torch.stack([rows + 100.0 * s for s in mesh.shard_indices])
+
+
+def engine_values(mesh):
+    """An ``SMCUpdater`` of 10 particles a shard (seed 0) on ``mesh``
+    after one update of ``SimplePrecessionModel`` at t = 4.3 with outcome
+    1, and its values: estimators, design scores, a PGH proposal and five
+    draws. ``(updater, values)``."""
     from ..distributions import UniformDistribution
     from ..heuristics import PGH
     from ..smc import SMCUpdater
     from ..test_models import SimplePrecessionModel
 
-    D, r, dev = mesh.n_devices, mesh.rank, mesh.device
-    # shard s's block: rows [10 s, 10 s + 10) of a fixed (10 D, 2) tensor
-    block = (torch.arange(20, dtype=torch.float32, device=dev).reshape(10, 2)
-             + 100.0 * r)[None]
+    u = SMCUpdater(SimplePrecessionModel(), 10 * mesh.n_devices,
+                   UniformDistribution([[0.0, 1.0]]),
+                   sharding=mesh.particle_sharding)
+    u.update(torch.tensor(1), {"t": torch.tensor([4.3])},
+             check_for_resample=False)
+    cand = {"t": torch.tensor([0.5, 1.0, 2.0, 4.0])}
+    return u, {
+        "mean": u.est_mean().tolist(),
+        "cov": u.est_covariance_mtx().tolist(),
+        "n_ess": u.n_ess, "entropy": float(u.est_entropy()),
+        "log_total_likelihood": u.log_total_likelihood,
+        "eig": u.expected_information_gain(cand).tolist(),
+        "risk": u.bayes_risk(cand).tolist(),
+        "pgh_t": float(PGH(u)()["t"][0]),
+        "sample": u.sample(5).tolist()}
+
+
+def task_collectives(mesh, args):
+    from ..checkpoint import load_updater, save_updater
+    from ..distributions import UniformDistribution
+    from ..smc import SMCUpdater
+    from ..test_models import SimplePrecessionModel
+
+    D, r = mesh.n_devices, mesh.rank
+    block = fixed_blocks(mesh)
     try:
         implicit = ParticleMesh()
         implicit = [implicit.n_devices, implicit.rank == r,
@@ -362,20 +522,8 @@ def task_collectives(mesh, args):
         out["indivisible"] = "accepted"
     except ValueError as exc:
         out["indivisible"] = str(exc)
-    u = SMCUpdater(model, 10 * D, prior, sharding=mesh.particle_sharding)
+    u, out["engine"] = engine_values(mesh)
     out["updater_local_rows"] = int(u.particle_weights.shape[0])
-    u.update(torch.tensor(1), {"t": torch.tensor([4.3])},
-             check_for_resample=False)
-    cand = {"t": torch.tensor([0.5, 1.0, 2.0, 4.0])}
-    out["engine"] = {
-        "mean": u.est_mean().tolist(),
-        "cov": u.est_covariance_mtx().tolist(),
-        "n_ess": u.n_ess, "entropy": float(u.est_entropy()),
-        "log_total_likelihood": u.log_total_likelihood,
-        "eig": u.expected_information_gain(cand).tolist(),
-        "risk": u.bayes_risk(cand).tolist(),
-        "pgh_t": float(PGH(u)()["t"][0]),
-        "sample": u.sample(5).tolist()}
     try:
         u.est_credible_region()
         out["host_estimator"] = "ran"
@@ -540,7 +688,8 @@ def task_trials(mesh, args):
            "true": record["true_mps"][:, 0].tolist(),
            "resample_counts": runner.resample_counts,
            "local_launches": _counts(),
-           "collective_calls": tmesh.collective_calls}
+           "collective_calls": tmesh.collective_calls,
+           "local_collective_s": tmesh.collective_seconds}
 
 
 def main(argv=None):
@@ -558,6 +707,10 @@ def main(argv=None):
                         help="N,STEPS,CANDIDATES of the config5 task")
     parser.add_argument("--cpu", action="store_true",
                         help="run on the CPU (default: the card)")
+    parser.add_argument("--backend", choices=("gloo", "nccl"),
+                        default="gloo",
+                        help="the process group's backend (nccl: one card "
+                             "a rank)")
     parser.add_argument("--record", metavar="DIR",
                         help="where the precession and flagship runs write "
                              "each rank's kernel inputs")
@@ -579,21 +732,30 @@ def main(argv=None):
     unknown = set(tasks) - set(TASKS)
     if unknown:
         parser.error(f"unknown tasks {sorted(unknown)}")
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    local_rank, local_world = host_slot(args.rank, args.world)
+    if args.backend == "nccl" and (args.cpu or local_world > cards):
+        raise ValueError(
+            f"NCCL takes one card a rank: {local_world} ranks and "
+            f"{0 if args.cpu else cards} cards"
+            + (" (--cpu asks for the CPU)" if args.cpu else ""))
     device = resolve_device("cpu" if args.cpu else "cuda")
     if device.type == "cuda":
-        device = torch.device("cuda", 0)
+        device = torch.device("cuda", card_of(local_rank, cards))
+        torch.cuda.set_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
     initialize_multihost(args.init_method, args.world, args.rank,
-                         backend="gloo")
+                         backend=args.backend)
     mesh = ParticleMesh.from_process_group(device)
-    run = {"jax": task_jax, "exchange": task_exchange,
+    run = {"card": task_card, "jax": task_jax, "exchange": task_exchange,
            "precession": task_precession, "config5": task_config5,
            "collectives": task_collectives, "runs": task_runs,
            "trials": task_trials}
     for task in tasks:
         for result in run[task](mesh, args):
             line = {"task": task, "rank": args.rank, "world": args.world,
-                    "device": str(device), **result}
+                    "device": str(device),
+                    "collective_timer": mesh.collective_timer, **result}
             print("RESULT " + json.dumps(line), flush=True)
     torch.distributed.destroy_process_group()
     return 0

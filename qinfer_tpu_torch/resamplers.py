@@ -197,8 +197,9 @@ def systematic_resample_locations_counting(generator, weights, locations):
 
 def multinomial_ancestors(generator, weights, n_out=None):
     """IID categorical ancestor indices ∝ ``weights`` (the reference
-    package's scheme), (n_out,) int64."""
-    n_out = weights.shape[0] if n_out is None else int(n_out)
+    package's scheme), (n_out,) int64; for a batch of weights (T, n), each
+    row's own, (T, n_out)."""
+    n_out = weights.shape[-1] if n_out is None else int(n_out)
     return torch.multinomial(torch.clamp_min(weights, EPS), n_out,
                              replacement=True, generator=generator)
 
@@ -238,21 +239,34 @@ class LiuWestResampler(Resampler):
     :param float a: shrinkage parameter in (0, 1].
     :param float h: kernel bandwidth override (default ``sqrt(1 - a**2)``).
     :param int maxiter: redraw rounds for validity postselection.
+    :param bool debug: kept, as the JAX package keeps it; unused.
     :param bool postselect: disable to skip the validity redraw.
     :param float zero_cov_comp: diagonal jitter added to Σ.
+    :param kernel: ``kernel(generator, shape) -> tensor`` on the
+        generator's device, drawn in place of the standard normal of the
+        proposals; ``None``: ``torch.randn``.
+    :param str kind: the ancestors: ``'systematic'`` (the counting fill,
+        K3) or ``'multinomial'`` (iid categorical,
+        :func:`multinomial_ancestors`, the reference package's scheme).
     :param bool canonicalize: apply ``model.canonicalize`` to the output.
 
     ``redraw_rounds`` lists the validity redraw rounds of each call.
     """
 
-    def __init__(self, a=0.98, h=None, maxiter=10, postselect=True,
-                 zero_cov_comp=1e-10, canonicalize=True):
+    def __init__(self, a=0.98, h=None, maxiter=10, debug=False,
+                 postselect=True, zero_cov_comp=1e-10, kernel=None,
+                 kind="systematic", canonicalize=True):
+        if kind not in ("systematic", "multinomial"):
+            raise ValueError("kind must be 'systematic' or 'multinomial'")
         self.a = float(a)
         self.h = (float(h) if h is not None
                   else math.sqrt(max(1.0 - self.a ** 2, 0.0)))
         self.maxiter = int(maxiter)
+        self.debug = bool(debug)
         self.postselect = bool(postselect)
         self.zero_cov_comp = float(zero_cov_comp)
+        self.kernel = kernel
+        self.kind = kind
         self.canonicalize = bool(canonicalize)
         self.redraw_rounds = []
 
@@ -285,24 +299,30 @@ class LiuWestResampler(Resampler):
 
     def _resample(self, model, generator, w, x, fill):
         """The resample of one ensemble (``w`` (n,), ``x`` (n, d)) or of T'
-        at once (a leading axis on both): the uniform offsets are the
-        first draw, then each ensemble's moments and Cholesky factor, the
-        counting fill ``fill(u, w, x)``, the proposals, the validity
-        rounds and the canonicalization."""
+        at once (a leading axis on both): the ancestors are the first
+        draw (the uniform offsets of the counting fill ``fill(u, w, x)``,
+        or the multinomial indices of each ensemble), then each ensemble's
+        moments and Cholesky factor, the proposals, the validity rounds
+        and the canonicalization."""
         n, d = x.shape[-2:]
         batch = x.shape[:-2]
         dev = x.device
-        u = torch.rand(batch, generator=generator, device=dev)
+        if self.kind == "multinomial":
+            anc = multinomial_ancestors(generator, w.reshape(-1, n), n)
+            x_anc = torch.gather(x.reshape(-1, n, d), 1, anc[..., None]
+                                 .expand(-1, -1, d)).reshape(x.shape)
+        else:
+            x_anc = fill(torch.rand(batch, generator=generator, device=dev),
+                         w, x)
         mu, cov = (weighted_moments if not batch else _batched_moments)(w, x)
         cov = cov + self.zero_cov_comp * torch.eye(d, dtype=cov.dtype,
                                                    device=dev)
         S_T = (shrinkage_factor(cov) * self.h).mT
 
-        x_anc = fill(u, w, x)
         centers = self.a * x_anc + (1.0 - self.a) * mu[..., None, :]
         new_x, n_fallback, rounds = propose_valid(
             model, generator, centers, S_T, x_anc,
-            self.maxiter if self.postselect else 0)
+            self.maxiter if self.postselect else 0, kernel=self.kernel)
         if rounds is not None:
             self.redraw_rounds.append(rounds)
         if self.canonicalize:
@@ -332,7 +352,7 @@ def shrinkage_factor(cov):
 
 
 def propose_valid(model, generator, centers, S_T, x_anc, maxiter,
-                  all_valid=None):
+                  all_valid=None, kernel=None):
     """The Liu-West proposals ``centers + z S_Tᵀ`` (``z`` standard normal
     of ``centers``' shape (..., n, d)) with at most ``maxiter`` validity
     redraw rounds against ``model.are_models_valid``: each round redraws
@@ -347,6 +367,8 @@ def propose_valid(model, generator, centers, S_T, x_anc, maxiter,
     :param all_valid: ``all_valid(valid) -> bool``, the early exit's
         verdict (default: every slot here valid); a mesh across processes
         passes its ranks' all-reduce, so every rank runs the same rounds.
+    :param kernel: ``kernel(generator, shape) -> tensor``, drawn in place
+        of the standard normal ``z`` (``None``: ``torch.randn``).
     :return: ``(locations, n_fallback, rounds)``: ``n_fallback`` int32
         counts the slots that kept their ancestor along the last axis but
         one (a 0-d tensor for one ensemble); ``rounds`` is the number of
@@ -357,14 +379,16 @@ def propose_valid(model, generator, centers, S_T, x_anc, maxiter,
         def all_valid(v):
             return bool(v.all())
 
+    if kernel is None:
+        def kernel(g, shape):
+            return torch.randn(shape, generator=g, device=centers.device)
+
     def propose():
         if isinstance(generator, (list, tuple)):
-            z = torch.stack([torch.randn(centers.shape[1:], generator=g,
-                                         device=centers.device)
+            z = torch.stack([kernel(g, centers.shape[1:])
                              for g in generator])
         else:
-            z = torch.randn(centers.shape, generator=generator,
-                            device=centers.device)
+            z = kernel(generator, centers.shape)
         return centers + z @ S_T
 
     def valid_of(y):

@@ -1045,3 +1045,76 @@ def test_tomography_model_warns_past_the_jacobi_gate_on_the_card(_card):
     with warnings.catch_warnings():
         warnings.simplefilter("error", PerformanceWarning)
         TomographyModel(pauli_basis(4))
+
+
+def _nccl_worker(tmp_path, world, *tasks):
+    """One rank of the worker over NCCL (the ranks of a bigger world are
+    never started); ``(returncode, stdout, stderr)``."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    p = subprocess.run(
+        [sys.executable, "-m", "qinfer_tpu_torch.parallel.worker", "--rank",
+         "0", "--world", str(world), "--backend", "nccl", "--init-method",
+         f"file://{tmp_path}/store", "--tasks", ",".join(tasks)],
+        cwd=repo, env=env, capture_output=True, text=True, timeout=300)
+    return p.returncode, p.stdout, p.stderr
+
+
+def test_one_rank_nccl_group_collectives_on_the_card(_card, tmp_path):
+    """A one-rank NCCL group in this process: the mesh spans it on the
+    card, its collectives equal the one-process mesh of one shard's, and
+    they are timed by CUDA events, read once at the end."""
+    from qinfer_tpu_torch.parallel import ParticleMesh, initialize_multihost
+    from qinfer_tpu_torch.parallel.worker import fixed_blocks
+
+    torch.cuda.set_device(_card)
+    initialize_multihost(f"file://{tmp_path}/store", 1, 0, backend="nccl")
+    try:
+        mesh = ParticleMesh()
+        assert mesh.spans_processes and mesh.backend == "nccl"
+        assert mesh.device == _card
+        assert mesh.collective_timer == "CUDA events on the current stream"
+        one = ParticleMesh([_card])
+        block = fixed_blocks(mesh)
+        assert torch.equal(mesh.psum(block), one.psum(block))
+        assert torch.equal(mesh.all_gather(block), one.all_gather(block))
+        assert torch.equal(mesh.pmax(block), one.pmax(block))
+        assert torch.equal(mesh.ppermute(block, 1), block)
+        mesh.barrier()
+        # psum and pmax each all-gather once; a shift by 0 is no exchange
+        assert mesh.collective_calls == 4
+        seconds = mesh.collective_seconds
+        assert 0 < seconds < 10 and mesh.collective_seconds == seconds
+        mesh.collective_seconds, mesh.collective_calls = 0.0, 0
+        assert mesh.collective_seconds == 0.0
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_one_rank_nccl_worker_runs_the_collectives_task(_card, tmp_path):
+    import json
+
+    rc, out, err = _nccl_worker(tmp_path, 1, "card", "collectives")
+    assert rc == 0, err
+    lines = {json.loads(ln[len("RESULT "):])["task"]: json.loads(
+        ln[len("RESULT "):]) for ln in out.splitlines()
+        if ln.startswith("RESULT ")}
+    card = lines["card"]["local_card"]
+    assert all(card[k] for k in ("name", "pci_bus_id", "uuid"))
+    got = lines["collectives"]
+    assert got["collective_timer"] == "CUDA events on the current stream"
+    assert got["device"] == "cuda:0" and got["reloaded"]
+    assert got["local_implicit_mesh"] == [1, True, "cuda:0"]
+
+
+def test_nccl_refuses_more_ranks_than_cards_on_the_card(_card, tmp_path):
+    cards = torch.cuda.device_count()
+    rc, out, err = _nccl_worker(tmp_path, cards + 1, "collectives")
+    assert rc != 0 and "RESULT" not in out
+    assert (f"NCCL takes one card a rank: {cards + 1} ranks and {cards} "
+            f"cards") in err

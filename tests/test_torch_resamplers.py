@@ -185,3 +185,105 @@ def test_liu_west_validity_and_fallback_count_like_jax():
     p = int(nf_j) / n
     assert p > 0.002
     assert abs(int(nf) - int(nf_j)) < 6 * np.sqrt(2 * n * p * (1 - p))
+
+
+def test_liu_west_keywords_are_accepted_and_stored_like_jax():
+    """``kind``, ``kernel`` and ``debug`` as the JAX package takes them;
+    another ``kind`` raises ``ValueError`` in both."""
+    def kernel(g, shape):
+        return torch.zeros(shape)
+
+    for cls, k in ((LiuWestResampler, kernel), (JaxLiuWest, kernel)):
+        rs = cls(a=0.9, kind="multinomial", kernel=k, debug=True)
+        assert (rs.kind, rs.kernel, rs.debug) == ("multinomial", k, True)
+        rs = cls()
+        assert (rs.kind, rs.kernel, rs.debug) == ("systematic", None, False)
+        with pytest.raises(ValueError, match="kind must be"):
+            cls(kind="stratified")
+
+
+def _copy_counts(x_out, x):
+    """How many output rows copy each input row (rows are distinct)."""
+    index = {v: i for i, v in enumerate(x[:, 0].tolist())}
+    counts = np.zeros((x_out.shape[0], x.shape[0]), np.int64)
+    for t, rows in enumerate(x_out[..., 0].tolist()):
+        for v in rows:
+            counts[t, index[v]] += 1
+    return counts
+
+
+def test_liu_west_multinomial_copy_count_law_matches_jax():
+    """Bootstrap (a = 1) multinomial resampling of 32 particles, 400
+    seeds: each package's mean copy count of particle i is n·wᵢ within 5
+    standard errors (σᵢ² = n·wᵢ(1 − wᵢ), over 400 seeds), the two packages'
+    means agree within 5√2 of them, and the variance summed over the
+    particles is the multinomial Σ n·wᵢ(1 − wᵢ) within 15 % (its standard
+    error is ~4 %; the systematic scheme's is under a third of it here).
+    The port runs the single path once a seed and the batched path over
+    all 400 rows at once."""
+    n, seeds = 32, 400
+    rng = np.random.default_rng(4)
+    x = np.linspace(0.05, 0.95, n, dtype=np.float32)[:, None]
+    w = rng.random(n).astype(np.float32) ** 2
+    w /= w.sum()
+    kw = dict(a=1.0, kind="multinomial", postselect=False,
+              canonicalize=False)
+    rs = LiuWestResampler(**kw)
+    single = np.stack([rs(_FreeTorch(), torch.Generator().manual_seed(s),
+                          torch.from_numpy(w), torch.from_numpy(x))[1]
+                       .numpy() for s in range(seeds)])
+    _, batched, _ = rs.call_batch_with_diagnostics(
+        _FreeTorch(), torch.Generator().manual_seed(0),
+        torch.from_numpy(np.tile(w, (seeds, 1))),
+        torch.from_numpy(np.tile(x, (seeds, 1, 1))))
+    jrs = JaxLiuWest(**kw)
+    draw = jax.jit(jax.vmap(lambda k: jrs(_FreeJax(), k, jnp.asarray(w),
+                                          jnp.asarray(x))[1]))
+    jax_out = np.asarray(draw(jax.random.split(jax.random.key(0), seeds)))
+    sigma2 = n * w.astype(np.float64) * (1 - w)
+    se = np.sqrt(sigma2 / seeds)
+    means = {}
+    for name, out in (("single", single), ("batched", batched.numpy()),
+                      ("jax", jax_out)):
+        counts = _copy_counts(out, x)
+        assert (counts.sum(axis=1) == n).all()
+        means[name] = counts.mean(axis=0)
+        assert np.all(np.abs(means[name] - n * w) < 5 * se + 1e-9), name
+        total_var = counts.var(axis=0, ddof=1).sum()
+        assert abs(total_var / sigma2.sum() - 1) < 0.15, (name, total_var)
+    for name in ("single", "batched"):
+        assert np.all(np.abs(means[name] - means["jax"])
+                      < 5 * np.sqrt(2) * se + 1e-9)
+
+
+def test_liu_west_zero_kernel_gives_the_centres_like_jax():
+    """A kernel of zeros leaves each proposal at its Liu-West centre,
+    a·x_anc + (1 − a)·μ, exactly: every output row is one of the inputs'
+    centres, computed in the same float32 operations, in both packages,
+    by the systematic and the multinomial scheme."""
+    w, x = _cloud(6, n=300)
+    a = 0.9
+    for kind in ("systematic", "multinomial"):
+        rs = LiuWestResampler(a=a, kind=kind, canonicalize=False,
+                              kernel=lambda g, shape: torch.zeros(shape))
+        mu, _ = weighted_moments(torch.from_numpy(w), torch.from_numpy(x))
+        centres = (a * torch.from_numpy(x) + (1.0 - a) * mu).numpy()
+        _, got = rs(_FreeTorch(), torch.Generator().manual_seed(1),
+                    torch.from_numpy(w), torch.from_numpy(x))
+        _, got_b, _ = rs.call_batch_with_diagnostics(
+            _FreeTorch(), torch.Generator().manual_seed(1),
+            torch.from_numpy(w)[None], torch.from_numpy(x)[None])
+        # JAX's bit-copying fill (its default one on the CPU telescopes
+        # differences, which rounds)
+        jrs = JaxLiuWest(a=a, kind=kind, canonicalize=False,
+                         kernel=lambda k, shape: jnp.zeros(shape),
+                         fill_strategy="scan" if kind == "systematic"
+                         else None)
+        jmu, _ = jax_moments(jnp.asarray(w), jnp.asarray(x))
+        jcentres = np.asarray(a * jnp.asarray(x) + (1.0 - a) * jmu[None, :])
+        _, jgot = jrs(_FreeJax(), jax.random.key(1), jnp.asarray(w),
+                      jnp.asarray(x))
+        for out, cs in ((got.numpy(), centres), (got_b[0].numpy(), centres),
+                        (np.asarray(jgot), jcentres)):
+            rows = {tuple(r) for r in cs.tolist()}
+            assert all(tuple(r) in rows for r in out.tolist()), kind

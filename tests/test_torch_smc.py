@@ -328,3 +328,15 @@ def test_simulate_experiment_frequencies_match_jax():
     for out in (got.numpy(), np.asarray(want)):
         assert set(np.unique(out)) <= {0, 1}
         assert abs(np.mean(out == 0) - p0) < 5 * sigma
+
+
+def test_pgh_takes_and_stores_maxiters_like_jax():
+    class _Holder:
+        model = qt.SimplePrecessionModel()
+
+    class _JaxHolder:
+        model = q.SimplePrecessionModel()
+
+    assert PGH(_Holder()).maxiters == q.PGH(_JaxHolder()).maxiters == 10
+    assert PGH(_Holder(), maxiters=3).maxiters == 3
+    assert q.PGH(_JaxHolder(), maxiters=3).maxiters == 3
