@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import tracing
 from .abstract_model import _field
 from .config import EPS
 from .utils import cumsum_last
@@ -90,9 +91,10 @@ class Heuristic:
         return self._updater
 
     def __call__(self, idx_exp=0):
-        st = self._updater.state
-        return self.propose(self._updater.generator, st.weights,
-                            st.locations, idx_exp)
+        with tracing.span("design"):
+            st = self._updater.state
+            return self.propose(self._updater.generator, st.weights,
+                                st.locations, idx_exp)
 
     def propose(self, generator, weights, locations, idx_exp):
         """Pure proposal; returns an expparams dict with one experiment."""

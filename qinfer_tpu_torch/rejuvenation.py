@@ -43,6 +43,7 @@ import math
 
 import torch
 
+from . import tracing
 from .abstract_model import keyed_kwargs, per_particle
 from .derived_models import BinomialModel
 from .parallel.mesh import LOCAL, particle_streams, reducer_of
@@ -231,6 +232,7 @@ def _ensemble_chol(locations, weights=None, reducer=LOCAL):
     cov = cov + 1e-10 * torch.eye(d, dtype=locations.dtype,
                                   device=locations.device)
     chol, info = torch.linalg.cholesky_ex(cov)
+    tracing.host_read("moves.chol_verdict")
     if bool((info != 0) | torch.isnan(chol).any()):
         return sqrtm_psd(cov)
     return chol
@@ -619,13 +621,27 @@ def _adaptive_sweeps(model, generator, x, lp, u, chol, posterior_lp,
     acc_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     ls, t = log_scale, adapt_t
     for sweep in range(int(n_moves)):
-        s = torch.exp(ls)
-        xi = _normal(generator, x)
-        if method == "mala":
-            disp_w = 0.5 * s * s * u + s * xi   # whitened displacement
-            prop = x + disp_w @ chol.T
+        with tracing.span("moves.propose"):
+            s = torch.exp(ls)
+            xi = _normal(generator, x)
+            if method == "mala":
+                disp_w = 0.5 * s * s * u + s * xi   # whitened displacement
+                prop = x + disp_w @ chol.T
+            else:
+                prop = x + s * (xi @ chol.T)
+        with tracing.span("moves.posterior"):
             valid = model.are_models_valid(prop)
-            lp_p, u_p = lp_and_grad(prop)
+            if method == "mala":
+                lp_p, u_p = lp_and_grad(prop)
+            elif crn_seed is None:
+                lp_p = posterior_lp(prop)
+            else:
+                g = torch.Generator(device=x.device)
+                g.manual_seed(crn_seed + sweep)
+                lp_p = posterior_lp(prop, particle_streams(g, mesh))
+                g.manual_seed(crn_seed + sweep)
+                lp = posterior_lp(x, particle_streams(g, mesh))
+        if method == "mala":
             # proposal densities in whitened coordinates: the forward
             # residual is s·ξ by construction, the reverse one
             # −disp_w − drift(x')
@@ -634,16 +650,6 @@ def _adaptive_sweeps(model, generator, x, lp, u, chol, posterior_lp,
             log_q_rev = -(0.5 / (s * s)) * torch.sum(rev * rev, dim=1)
             ratio = lp_p + log_q_rev - lp - log_q_fwd
         else:
-            prop = x + s * (xi @ chol.T)
-            valid = model.are_models_valid(prop)
-            if crn_seed is None:
-                lp_p = posterior_lp(prop)
-            else:
-                g = torch.Generator(device=x.device)
-                g.manual_seed(crn_seed + sweep)
-                lp_p = posterior_lp(prop, particle_streams(g, mesh))
-                g.manual_seed(crn_seed + sweep)
-                lp = posterior_lp(x, particle_streams(g, mesh))
             ratio = lp_p - lp
         accept = valid & (_log_uniform(generator, x) < ratio)
         x = torch.where(accept[:, None], prop, x)
@@ -691,38 +697,42 @@ def _mh_moves_adaptive(model, prior, generator, locations, record_ll,
         raise ValueError("mcmc_method='mala' requires a deterministic "
                          "likelihood (Monte-Carlo likelihoods have no "
                          "usable gradient; use mcmc_method='rwm')")
-    x = locations
-    d = x.shape[1]
-    log_pdf = resolve_prior_log_pdf(prior)
-    chol = _ensemble_chol(x, reducer=_reducer(mesh))
-    cap = grad_clip * math.sqrt(d)
-    log_scale = torch.as_tensor(log_scale, dtype=x.dtype, device=x.device)
-    adapt_t = torch.as_tensor(adapt_t, dtype=torch.int32, device=x.device)
+    with tracing.span("moves"):
+        x = locations
+        d = x.shape[1]
+        log_pdf = resolve_prior_log_pdf(prior)
+        with tracing.span("moves.factor"):
+            chol = _ensemble_chol(x, reducer=_reducer(mesh))
+        cap = grad_clip * math.sqrt(d)
+        log_scale = torch.as_tensor(log_scale, dtype=x.dtype, device=x.device)
+        adapt_t = torch.as_tensor(adapt_t, dtype=torch.int32, device=x.device)
 
-    def posterior_lp(xx, g=None):
-        return (record_ll(xx, g) if keyed else record_ll(xx)) + log_pdf(xx)
+        def posterior_lp(xx, g=None):
+            return (record_ll(xx, g) if keyed else record_ll(xx)) + log_pdf(xx)
 
-    def lp_and_grad(xx):
-        return _lp_and_whitened_grad(posterior_lp, xx, chol, cap)
+        def lp_and_grad(xx):
+            return _lp_and_whitened_grad(posterior_lp, xx, chol, cap)
 
-    crn_seed = None
-    if method == "mala":
-        lp, u = lp_and_grad(x)
-    elif keyed:
-        # every sweep re-estimates both sides, so no initial pass; the
-        # call's one extra host copy is the seed of its sweeps' streams
-        lp, u = torch.zeros_like(x[:, 0]), None
-        crn_seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
-                                     device=x.device))
-    else:
-        lp, u = posterior_lp(x), None
-    x, acc_sum, log_scale, adapt_t = _adaptive_sweeps(
-        model, particle_streams(generator, mesh), x, lp, u, chol,
-        posterior_lp, lp_and_grad, n_moves, log_scale, adapt_t, method,
-        float(target_accept), adapt, crn_seed, mesh)
-    if canonicalize:
-        x = model.canonicalize(x)
-    return x, acc_sum / max(int(n_moves), 1), log_scale, adapt_t
+        crn_seed = None
+        if method == "mala":
+            lp, u = lp_and_grad(x)
+        elif keyed:
+            # every sweep re-estimates both sides, so no initial pass; the
+            # call's one extra host copy is the seed of its sweeps' streams
+            lp, u = torch.zeros_like(x[:, 0]), None
+            tracing.host_read("moves.crn_seed")
+            crn_seed = int(torch.randint(0, 2 ** 62, (1,),
+                                         generator=generator,
+                                         device=x.device))
+        else:
+            lp, u = posterior_lp(x), None
+        x, acc_sum, log_scale, adapt_t = _adaptive_sweeps(
+            model, particle_streams(generator, mesh), x, lp, u, chol,
+            posterior_lp, lp_and_grad, n_moves, log_scale, adapt_t, method,
+            float(target_accept), adapt, crn_seed, mesh)
+        if canonicalize:
+            x = model.canonicalize(x)
+        return x, acc_sum / max(int(n_moves), 1), log_scale, adapt_t
 
 
 def mcmc_rejuvenate_adaptive(model, prior, generator, locations, outcomes,

@@ -25,6 +25,7 @@ import math
 
 import torch
 
+from . import tracing
 from .config import EPS
 from .ops.streaming_resample import streaming_resample_locations
 from .utils import cumsum_last, weighted_moments, sqrtm_psd
@@ -304,32 +305,40 @@ class LiuWestResampler(Resampler):
         or the multinomial indices of each ensemble), then each ensemble's
         moments and Cholesky factor, the proposals, the validity rounds
         and the canonicalization."""
-        n, d = x.shape[-2:]
-        batch = x.shape[:-2]
-        dev = x.device
-        if self.kind == "multinomial":
-            anc = multinomial_ancestors(generator, w.reshape(-1, n), n)
-            x_anc = torch.gather(x.reshape(-1, n, d), 1, anc[..., None]
-                                 .expand(-1, -1, d)).reshape(x.shape)
-        else:
-            x_anc = fill(torch.rand(batch, generator=generator, device=dev),
-                         w, x)
-        mu, cov = (weighted_moments if not batch else _batched_moments)(w, x)
-        cov = cov + self.zero_cov_comp * torch.eye(d, dtype=cov.dtype,
-                                                   device=dev)
-        S_T = (shrinkage_factor(cov) * self.h).mT
+        with tracing.span("resample"):
+            n, d = x.shape[-2:]
+            batch = x.shape[:-2]
+            dev = x.device
+            with tracing.span("resample.ancestors"):
+                if self.kind == "multinomial":
+                    anc = multinomial_ancestors(generator, w.reshape(-1, n),
+                                                n)
+                    x_anc = torch.gather(x.reshape(-1, n, d), 1,
+                                         anc[..., None].expand(-1, -1, d)
+                                         ).reshape(x.shape)
+                else:
+                    x_anc = fill(torch.rand(batch, generator=generator,
+                                            device=dev), w, x)
+            with tracing.span("resample.proposal"):
+                mu, cov = (weighted_moments if not batch
+                           else _batched_moments)(w, x)
+                cov = cov + self.zero_cov_comp * torch.eye(
+                    d, dtype=cov.dtype, device=dev)
+                S_T = (shrinkage_factor(cov) * self.h).mT
 
-        centers = self.a * x_anc + (1.0 - self.a) * mu[..., None, :]
-        new_x, n_fallback, rounds = propose_valid(
-            model, generator, centers, S_T, x_anc,
-            self.maxiter if self.postselect else 0, kernel=self.kernel)
-        if rounds is not None:
-            self.redraw_rounds.append(rounds)
-        if self.canonicalize:
-            new_x = model.canonicalize(new_x.reshape(-1, d)).reshape(
-                new_x.shape)
-        new_w = torch.full(w.shape, 1.0 / n, dtype=w.dtype, device=dev)
-        return new_w, new_x, n_fallback
+                centers = self.a * x_anc + (1.0 - self.a) * mu[..., None, :]
+                new_x, n_fallback, rounds = propose_valid(
+                    model, generator, centers, S_T, x_anc,
+                    self.maxiter if self.postselect else 0,
+                    kernel=self.kernel)
+                if rounds is not None:
+                    self.redraw_rounds.append(rounds)
+            if self.canonicalize:
+                with tracing.span("resample.project"):
+                    new_x = model.canonicalize(new_x.reshape(-1, d)).reshape(
+                        new_x.shape)
+            new_w = torch.full(w.shape, 1.0 / n, dtype=w.dtype, device=dev)
+            return new_w, new_x, n_fallback
 
 
 def shrinkage_factor(cov):
@@ -342,9 +351,11 @@ def shrinkage_factor(cov):
     L, info = torch.linalg.cholesky_ex(cov)
     bad = ((info != 0) | torch.isnan(L).flatten(-2).any(dim=-1)
            ).reshape(-1)
+    tracing.host_read("resample.chol_verdict")
     if bool(bad.any()):
         L = L.reshape(-1, d, d).clone()
         cov_rows = cov.reshape(-1, d, d)
+        tracing.host_read("resample.chol_rows")
         for t in torch.nonzero(bad).flatten().tolist():
             L[t] = sqrtm_psd(cov_rows[t])
         L = L.reshape(cov.shape)
@@ -402,7 +413,10 @@ def propose_valid(model, generator, centers, S_T, x_anc, maxiter,
     valid = valid_of(new_x)
     # early exit: the common case needs no redraw round at all
     it = 0
-    while it < maxiter and not all_valid(valid):
+    while it < maxiter:
+        tracing.host_read("resample.validity")
+        if all_valid(valid):
+            break
         fresh = propose()
         fresh_valid = valid_of(fresh)
         take = ~valid & fresh_valid

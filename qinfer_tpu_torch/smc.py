@@ -47,6 +47,7 @@ from .parallel.mesh import (LOCAL, particle_streams, placement, reducer_of,
 from .parallel.resample import DistributedLiuWestResampler
 from .resamplers import LiuWestResampler
 from . import rejuvenation as rj
+from . import tracing
 from .utils import (_map_leaves, in_ellipsoid, mvee, particle_covariance_mtx,
                     particle_mean, particle_meanfn, weighted_moments)
 
@@ -460,45 +461,50 @@ def _update_step(model, resampler, state, outcome, eps, resample_thresh,
     :return: ``(new_state, log_norm, was_zero)`` with ``log_norm`` a float
         and ``was_zero`` a bool.
     """
-    n = state.weights.shape[0] * reducer.n_shards
-    time_dependent = bool(model.is_time_dependent)
-    draws = generator
-    if time_dependent or getattr(model, "wants_likelihood_key", False):
-        draws = particle_streams(generator, mesh)
-    hyp, norm, log_norm = _reweight(
-        model, state.weights, state.locations, outcome, eps, draws,
-        reducer)
-    was_zero_t = norm <= zero_weight_thresh
-    new_w = torch.where(was_zero_t, 1.0 / n,
-                        hyp / torch.clamp_min(norm, EPS))
-    locs = state.locations
-    if time_dependent:
-        locs = per_particle(draws, lambda g, x: model.update_timestep(
-            g, x, eps)[:, :, 0], locs)
-    ess = 1.0 / reducer.sum(torch.sum(new_w * new_w))
-    # the step's one device→host copy
-    was_zero, below, log_norm_host = torch.stack([
-        was_zero_t.to(torch.float32), (ess <= resample_thresh * n)
-        .to(torch.float32), log_norm.to(torch.float32)]).tolist()
-    do_resample = (bool(check_resample) and below > 0
-                   and (resample_gate is None or bool(resample_gate)))
+    with tracing.span("update"):
+        n = state.weights.shape[0] * reducer.n_shards
+        time_dependent = bool(model.is_time_dependent)
+        draws = generator
+        if time_dependent or getattr(model, "wants_likelihood_key", False):
+            draws = particle_streams(generator, mesh)
+        with tracing.span("update.reweight"):
+            hyp, norm, log_norm = _reweight(
+                model, state.weights, state.locations, outcome, eps, draws,
+                reducer)
+            was_zero_t = norm <= zero_weight_thresh
+            new_w = torch.where(was_zero_t, 1.0 / n,
+                                hyp / torch.clamp_min(norm, EPS))
+            locs = state.locations
+            if time_dependent:
+                locs = per_particle(draws, lambda g, x: model.update_timestep(
+                    g, x, eps)[:, :, 0], locs)
+            ess = 1.0 / reducer.sum(torch.sum(new_w * new_w))
+        # the step's one device→host copy
+        with tracing.span("update.read"):
+            tracing.host_read("update.read")
+            was_zero, below, log_norm_host = torch.stack([
+                was_zero_t.to(torch.float32), (ess <= resample_thresh * n)
+                .to(torch.float32), log_norm.to(torch.float32)]).tolist()
+        do_resample = (bool(check_resample) and below > 0
+                       and (resample_gate is None or bool(resample_gate)))
 
-    n_fallback = 0
-    if do_resample:
-        new_w, locs, n_fallback = resampler.call_with_diagnostics(
-            model, generator, new_w, locs)
+        n_fallback = 0
+        if do_resample:
+            new_w, locs, n_fallback = resampler.call_with_diagnostics(
+                model, generator, new_w, locs)
 
-    new_state = SMCState(
-        weights=new_w,
-        locations=locs,
-        resample_count=state.resample_count + int(do_resample),
-        just_resampled=do_resample,
-        log_total_likelihood=state.log_total_likelihood + log_norm,
-        min_n_ess=torch.minimum(state.min_n_ess, ess),
-        zero_weight_count=state.zero_weight_count + int(was_zero > 0),
-        resampler_fallback_count=state.resampler_fallback_count + n_fallback,
-    )
-    return new_state, log_norm_host, was_zero > 0
+        new_state = SMCState(
+            weights=new_w,
+            locations=locs,
+            resample_count=state.resample_count + int(do_resample),
+            just_resampled=do_resample,
+            log_total_likelihood=state.log_total_likelihood + log_norm,
+            min_n_ess=torch.minimum(state.min_n_ess, ess),
+            zero_weight_count=state.zero_weight_count + int(was_zero > 0),
+            resampler_fallback_count=(state.resampler_fallback_count
+                                      + n_fallback),
+        )
+        return new_state, log_norm_host, was_zero > 0
 
 
 class SMCUpdater:
@@ -926,6 +932,7 @@ class SMCUpdater:
             if was_zero:
                 self._handle_zero_weight()
             if new_state.just_resampled:
+                tracing.host_read("update.fallback")
                 self._warn_resampler_fallback(
                     int(new_state.resampler_fallback_count
                         - prev_state.resampler_fallback_count))

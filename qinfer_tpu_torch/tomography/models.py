@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..abstract_model import FiniteOutcomeModel, atleast_2d
+from .. import tracing
 from .._exceptions import PerformanceWarning
 from ..config import DEFAULT_DEVICE, EPS
 from ..ops.jacobi import jacobi_project_lanes, jacobi_project_lanes_looped
@@ -169,6 +170,7 @@ class TomographyModel(FiniteOutcomeModel):
             return modelparams * scale
         m = self._embedded_states(modelparams)
         invalid = _cholesky_fails(m, STRICT_PSD_TOL)
+        tracing.host_read("project.verdict")
         if not bool(invalid.any()):
             return modelparams
         self.projection_count += 1

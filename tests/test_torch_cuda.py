@@ -429,8 +429,8 @@ class _FedDraws:
         return self._next("normal", like.shape if shape is None else shape,
                           like)
 
-    def log_uniform(self, generator, n, like):
-        return self._next("log_uniform", (n,), like)
+    def log_uniform(self, generator, like):
+        return self._next("log_uniform", (like.shape[0],), like)
 
 
 @pytest.mark.parametrize("method", ["rwm", "mala"])
@@ -1118,3 +1118,78 @@ def test_nccl_refuses_more_ranks_than_cards_on_the_card(_card, tmp_path):
     assert rc != 0 and "RESULT" not in out
     assert (f"NCCL takes one card a rank: {cards + 1} ranks and {cards} "
             f"cards") in err
+
+
+def test_recording_never_waits_for_the_card(_card):
+    """Tracing adds no synchronizing call: an adaptive sweep loop runs
+    under ``set_sync_debug_mode("error")`` while recording, and a resampling
+    update step and a move call make as many synchronizing calls recording
+    as not, with equal outputs. The spans' device times are CUDA events."""
+    import contextlib
+    import warnings
+
+    from qinfer_tpu_torch import AcceleratedPrecessionModel, tracing
+    from qinfer_tpu_torch.resamplers import LiuWestResampler
+    from qinfer_tpu_torch.smc import SMCState, _update_step
+
+    rj, model, prior, _, x, succ, trials, pool = _coin_sweep_inputs("rwm")
+    two = model.underlying_model
+    log_pdf = rj.resolve_prior_log_pdf(prior)
+
+    def posterior_lp(xx):
+        return rj.binomial_record_log_likelihood(two, xx, succ, trials,
+                                                 pool) + log_pdf(xx)
+
+    chol = rj._ensemble_chol(x)
+    ls = torch.tensor(rj.initial_log_scale(1, "rwm"), device="cuda")
+    t = torch.zeros((), dtype=torch.int32, device="cuda")
+    lp = posterior_lp(x)
+    tracing.reset()
+    with tracing.recording(_card):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            rj._adaptive_sweeps(model, _gen(2), x, lp, None, chol,
+                                posterior_lp, None, 6, ls, t, "rwm", 0.234,
+                                True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    snap = tracing.snapshot()
+    assert snap["timer"] == "CUDA events on the current stream"
+    assert snap["totals"]["moves.propose"][0] == 6
+    assert snap["totals"]["moves.posterior"][1] > 0
+    tracing.reset()
+
+    omega = torch.rand((1 << 16, 1), generator=_gen(3), device="cuda")
+
+    def calls(record):
+        torch.cuda.synchronize()
+        out = []
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with (tracing.recording(_card) if record
+                  else contextlib.nullcontext()):
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    st, _, _ = _update_step(
+                        AcceleratedPrecessionModel(), LiuWestResampler(),
+                        SMCState.initial(omega), torch.tensor([1],
+                                                              device="cuda"),
+                        {"t": torch.tensor([3.0], device="cuda")}, 1.0,
+                        1e-10, _gen(4))
+                    out += [st.weights, st.locations]
+                    out += list(rj.mcmc_rejuvenate_binomial_adaptive(
+                        model, prior, _gen(5), x, succ, trials, pool, 4, ls,
+                        t, method="rwm"))
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+        return sum("synchroniz" in str(c.message) for c in caught), out
+
+    off, out_off = calls(False)
+    on, out_on = calls(True)
+    assert on == off
+    for a, b in zip(out_off, out_on):
+        assert torch.equal(a, b)
+    reads = tracing.snapshot()["host_reads"]
+    assert reads["update.read"] == 1 and reads["moves.chol_verdict"] == 1
+    tracing.reset()
