@@ -11,7 +11,10 @@ one line, and any failure exits non-zero without the final ``ok`` line:
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes (K1-K3 at 2²² particles, K2 also at n = 1, the
    shape the loop gives it, K3 also at the process path's n = 50 000,
-   d = 255, bit-exact on raw bit patterns; the Jacobi kernels K4-K6, equal
+   d = 255, bit-exact on raw bit patterns; the counting pass at 2²², at
+   50 000 and on 12 rows of 131 072, equal to its plain version to the bit
+   on integer weights and within one slot of the float64 count on random
+   ones; the Jacobi kernels K4-K6, equal
    to their plain versions to the bit, on embedded Ginibre/BCSZ states
    pushed out of the PSD cone as Liu-West proposals are, and on random
    symmetric matrices, also against host float64 ``numpy.linalg.eigh`` on
@@ -268,6 +271,10 @@ KERNEL_SOURCES = {
                                     "qinfer_tpu/ops/jacobi.py:230"),
     "jacobi_eigh_lanes": ("qinfer_tpu_torch/csrc/jacobi.cu",
                           "qinfer_tpu/ops/jacobi.py:269"),
+    "counting_multiplicities_from_u": (
+        "qinfer_tpu_torch/csrc/counting_pass.cu",
+        "none (the JAX package's jnp.cumsum and cummax, "
+        "qinfer_tpu/resamplers.py:164)"),
 }
 
 
@@ -612,6 +619,82 @@ def check_kernels(torch, dev):
     say("kernels", f"K3 streaming_resample_locations n={n}, d=1: bit-exact "
                    f"(also d=3, n={n - 3}, and raw bit patterns at d=2 and "
                    f"at n, d = {K3_PROCESS})")
+
+    timers_c, extra_c = check_counting_pass(torch, dev, g)
+    return timers + timers_c, extra + extra_c
+
+
+def _float64_ceilings(torch, u, w, n):
+    """``ceil(n·F − u)`` per row of the float64 CDF of ``w`` (rows, n),
+    the last one n: the counts' exact first slots, on the card."""
+    cdf = torch.cumsum(w.double(), dim=-1)
+    upper = torch.ceil(n * (cdf / cdf[..., -1:]) - u.double()[..., None])
+    upper[..., -1] = n
+    return upper
+
+
+def check_counting_pass(torch, dev, g):
+    """The counting pass (``ops.counting_pass``, three kernels a call)
+    against its plain version at the shapes its callers give it: one row
+    of 2²² (precession), of 50 000 (the process paths) and 12 rows of
+    131 072 (the batched trials' resample). On integer weights, which
+    every order sums exactly, to the bit; on random weights Σ m = n in
+    each row, the same bits on a second call, and every ceiling within
+    one slot of the float64 count (the plain version's distance printed
+    beside it). Returns ``(timers, extra)`` as :func:`check_kernels`; the
+    bound: the weights read once, counts and offsets written once (12 B a
+    particle), ~10 operations a particle."""
+    from qinfer_tpu_torch.ops import counting_pass as cp
+
+    name = "counting_multiplicities_from_u"
+    no_library = ("no one PyTorch call counts copies from a CDF (the plain "
+                  "version: cumsum, ceilings, cummax)")
+    cases = []
+    for shape in ((N_MAIN,), (K3_PROCESS[0],), (12, TRIALS[1])):
+        n = shape[-1]
+        u = torch.rand(shape[:-1], generator=g, device=dev)
+        w = torch.randint(0, 4, shape, generator=g, device=dev).float()
+        w[..., -1] = 1.0
+        got = cp.counting_multiplicities_from_u(u, w, n)
+        want = cp.counting_multiplicities_from_u_plain(u, w, n)
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"counting pass differs from plain on integer weights at "
+                f"{shape}")
+        w = torch.rand(shape, generator=g, device=dev) ** 8 + 1e-12
+        w = w / w.sum(dim=-1, keepdim=True)
+        m, off = cp.counting_multiplicities_from_u(u, w, n)
+        again = cp.counting_multiplicities_from_u(u, w, n)
+        require(torch.equal(m, again[0]) and torch.equal(off, again[1]),
+                f"counting pass not deterministic at {shape}")
+        require(bool((m.reshape(-1, n).sum(dim=1) == n).all())
+                and int(m.min()) >= 0, f"counting pass: Σ m != n at {shape}")
+        exact = _float64_ceilings(torch, u, w.reshape(-1, n), n)
+        p_m, p_off = cp.counting_multiplicities_from_u_plain(u, w, n)
+        off_by = [int(((o + mm).reshape(-1, n) - exact).abs().max())
+                  for mm, o in ((m, off), (p_m, p_off))]
+        require(off_by[0] <= 1, f"counting pass: a ceiling {off_by[0]} "
+                                f"slots from the float64 count at {shape}")
+        cases.append((shape, u, w, off_by))
+    timers, extra = [], []
+    for k, (shape, u, w, off_by) in enumerate(cases):
+        n = shape[-1]
+        label = " x ".join(map(str, shape))
+        entry = timed(
+            kernel_result(name, slots_from_float64=off_by[0]) if k == 0
+            else f"{name} {label}",
+            lambda u=u, w=w, n=n: cp.counting_multiplicities_from_u(u, w, n),
+            lambda u=u, w=w, n=n: cp.counting_multiplicities_from_u_plain(
+                u, w, n),
+            no_library=no_library, bound_at=bound(12 * w.numel(),
+                                                  10 * w.numel()),
+            attach=None if k == 0 else dict(kernel=name))
+        (timers if k == 0 else extra).append(entry)
+    say("kernels", "counting pass, ceilings' slots from the float64 count "
+                   "(chain / plain): " + ", ".join(
+                       f"{' x '.join(map(str, c[0]))}: {c[3][0]} / {c[3][1]}"
+                       for c in cases) +
+        "; equal to plain to the bit on integer weights, deterministic, "
+        "Σ m = n")
     return timers, extra
 
 
@@ -1066,12 +1149,16 @@ def run_main_path(torch, dev):
     """Phase 5: the benchmark protocol through the kernels, counted."""
     from qinfer_tpu_torch import bench
 
+    from qinfer_tpu_torch.ops.counting_pass import (
+        counting_multiplicities_from_u as counting)
+
     counted = counted_wrappers()
     bench.timed_run(N_MAIN, bench.N_STEPS, 0, dev)  # warm-up
     walls, launches = [], {}
     for rep in range(bench.N_REPEATS):
         for fn in counted.values():
             fn.launches = 0
+        counting.launches = 0
         wall, updater = bench.timed_run(N_MAIN, bench.N_STEPS, rep + 1, dev)
         launches = {name: fn.launches for name, fn in counted.items()}
         walls.append(wall)
@@ -1090,6 +1177,10 @@ def run_main_path(torch, dev):
                 == updater.resample_count > 0,
                 f"K3 launched {launches['streaming_resample_locations']} "
                 f"times for {updater.resample_count} resamples")
+        require(counting.launches == updater.resample_count,
+                f"the counting pass ran {counting.launches} times for "
+                f"{updater.resample_count} resamples")
+        launches["counting_multiplicities_from_u"] = counting.launches
         require(all(launches[k] == 0 for k in launches
                     if k.startswith("jacobi")),
                 f"a Jacobi kernel ran on the precession path: {launches}")
@@ -3445,6 +3536,8 @@ def main(argv):
     next(r for r in results if r["name"] == "fused_precession_update")[
         "launches_trials_accelerated"] = trials_k1
     for r in results:
+        if r["name"] not in resume_launches:
+            continue  # the counting pass: counted on the main path only
         if resume_launches[r["name"]]:
             r["launches_resume"] = resume_launches[r["name"]]
         # the sharded precession run (a), or the flagship leg on 8 shards

@@ -52,6 +52,10 @@ _SIGNATURES = {
     "qk_precession_pr0": ([_VP, _LL, _VP, _VP, _LL, _LL, _VP], ctypes.c_int),
     "qk_streaming_resample_locations": (
         [_VP, _VP, _VP, _LL, _LL, _VP], ctypes.c_int),
+    "qk_counting_pass": (
+        [_VP, _LL, _LL, _VP, _I, _F, _LL, _F, _VP, _VP, _VP, _VP],
+        ctypes.c_int),
+    "qk_counting_pass_tile": ([], ctypes.c_int),
     "qk_jacobi_project": ([_VP, _VP, _LL, _I, _I, _F, _F, _VP], ctypes.c_int),
     "qk_jacobi_project_warp": (
         [_VP, _VP, _LL, _I, _I, _F, _F, _VP], ctypes.c_int),

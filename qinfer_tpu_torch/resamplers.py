@@ -1,8 +1,10 @@
 """Particle resamplers (counterpart of :mod:`qinfer_tpu.resamplers`).
 
 Ancestor selection is systematic resampling in its sort-free counting form:
-one cumsum gives every particle's copy count ``m_i`` and first output slot,
-and kernel K3 (:func:`~qinfer_tpu_torch.ops.streaming_resample.
+one scan gives every particle's copy count ``m_i`` and first output slot
+(:func:`~qinfer_tpu_torch.ops.counting_pass.
+counting_multiplicities_from_u`, a CUDA chain on the card), and kernel K3
+(:func:`~qinfer_tpu_torch.ops.streaming_resample.
 streaming_resample_locations`) expands the survivors into their spans with
 no scatter and no gather. The Liu-West resampler then draws the shrinkage
 proposal, redraws invalid proposals for at most ``maxiter`` rounds and
@@ -27,6 +29,7 @@ import torch
 
 from . import tracing
 from .config import EPS
+from .ops.counting_pass import counting_multiplicities_from_u
 from .ops.streaming_resample import streaming_resample_locations
 from .utils import cumsum_last, weighted_moments, sqrtm_psd
 
@@ -44,54 +47,6 @@ _BELOW_ONE = 1.0 - 2.0 ** -24
 #: rows K3 can address: its output offsets (``starts``) are int32 row
 #: indices (the word index inside the kernel is 64-bit, so d is free)
 _K3_MAX_ROWS = 2 ** 31 - 1
-
-
-def counting_multiplicities_from_u(u, weights, n_out):
-    """Per-particle copy counts and output offsets of systematic resampling
-    with uniform offset ``u``, from ONE cumsum and elementwise math.
-
-    ``m_i = ceil(n·F_i − u) − ceil(n·F_{i−1} − u)`` counts the stratified
-    positions ``(j + u)/n`` that land in ``(F_{i−1}, F_i]``; the exclusive
-    cumsum of ``m`` is ``ceil(n·F_{i−1} − u)`` itself. ``n·F`` amplifies
-    float32 CDF rounding, so a boundary assignment can shift by one slot
-    relative to another summation order; ``Σ m = n`` holds exactly and no
-    slot goes to a particle of zero weight (the JAX package's loses the
-    last slot when float32 rounds ``n − u`` down: see the comment below).
-
-    Batched: ``weights`` (T, n) with ``u`` (T,) counts each row along the
-    last axis with its own offset (the clamp and the ``cummax`` per row,
-    so every row keeps ``Σ m = n``).
-
-    :param u: uniform offset in [0, 1) (number or 0-d tensor; (T,) for
-        batched weights).
-    :return: ``(m, offsets)``, both int32 of the weights' shape.
-    """
-    if torch.is_tensor(u) and u.ndim == 1:
-        u = u[:, None]
-    cdf = cumsum_last(weights)
-    # a parallel cumsum (the GPU's) may leave a prefix an ulp above the
-    # total; the clamp keeps every ceiling at or below n_out so Σ m = n_out
-    cdf = torch.clamp_max(
-        cdf / torch.clamp_min(cdf[..., -1:], EPS), 1.0)
-    # a prefix that has reached the total has ceiling ceil(n_out − u) =
-    # n_out for every u in [0, 1), but float32 rounds n_out − u down to
-    # n_out − 1 when u lies within half an ulp of n_out below 1 (u > 0.996
-    # at n = 2¹⁷, > 0.875 at 2²²), which would hand the last slot to the
-    # last particle whatever its weight; every such ceiling is set
-    # exactly, so the slot goes to the first particle whose prefix reaches
-    # the total (the last one of positive weight). The last prefix counts
-    # as reached even when a total below EPS leaves it short of 1.
-    reached = cdf >= 1.0
-    reached[..., -1] = True
-    upper = torch.where(reached, float(n_out), torch.ceil(n_out * cdf - u))
-    # the prefix sums can also dip by an ulp; cummax restores monotonicity
-    # so no m is negative and no spans overlap
-    upper = torch.cummax(upper, dim=-1).values
-    lower = torch.cat([torch.zeros_like(upper[..., :1]), upper[..., :-1]],
-                      dim=-1)
-    m = (upper - lower).to(torch.int32)
-    offsets = torch.clamp_min(lower, 0.0).to(torch.int32)
-    return m, offsets
 
 
 def counting_locations_from_u(u, weights, locations):

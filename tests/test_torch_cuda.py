@@ -10,6 +10,7 @@ has none:
 import pytest
 import torch
 
+from qinfer_tpu_torch.ops import counting_pass as cp
 from qinfer_tpu_torch.ops import jacobi as jac
 from qinfer_tpu_torch.ops import precession as prec
 from qinfer_tpu_torch.ops import streaming_resample as sr
@@ -152,6 +153,130 @@ def test_k3_kernel_is_bit_exact(_card, n, d):
     want = sr.streaming_resample_locations_plain(m, starts, x)
     assert sr.streaming_resample_locations.launches == before + 1
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+COUNTING_SHAPES = [(2 ** 22,), (50_000,), (12, 131_072), (1000,), (1,)]
+
+
+def _offsets(card, shape, seed):
+    """One uniform offset a row: 0-d for one row, (T,) for T rows."""
+    return torch.rand(shape[:-1], generator=_gen(seed), device=card)
+
+
+@pytest.mark.parametrize("shape", COUNTING_SHAPES)
+def test_counting_pass_equals_plain_on_dyadic_weights(_card, shape):
+    """Small integers sum exactly in every order, so the chain and the
+    plain version (cumsum and cummax) give the same counts to the bit;
+    one chain a call."""
+    g = _gen(shape[-1] + len(shape))
+    w = torch.randint(0, 4, shape, generator=g, device=_card).float()
+    w[..., -1] = 1.0
+    u = _offsets(_card, shape, 3)
+    before = cp.counting_multiplicities_from_u.launches
+    got = cp.counting_multiplicities_from_u(u, w, shape[-1])
+    assert cp.counting_multiplicities_from_u.launches == before + 1
+    want = cp.counting_multiplicities_from_u_plain(u, w, shape[-1])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("steep", [False, True])
+@pytest.mark.parametrize("shape", COUNTING_SHAPES + [(3, 4097)])
+def test_counting_pass_holds_its_invariants_and_its_model(_card, shape,
+                                                          steep):
+    """Random weights: the chain equals its NumPy model
+    (``tests/test_torch_counting_pass.py``) to the bit; Σ m = n, m ≥ 0,
+    the offsets are the exclusive sums of m, each ceiling within one slot
+    of the float64 count; two calls agree to the bit, and a row of a
+    batch gives what it gives alone."""
+    import numpy as np
+    from test_torch_counting_pass import chain_counts, float64_ceilings
+
+    n = shape[-1]
+    w = torch.rand(shape, generator=_gen(n + 1), device=_card)
+    if steep:
+        w = w ** 8 + 1e-12
+    w = w / w.sum(dim=-1, keepdim=True)
+    u = _offsets(_card, shape, n + 2)
+    m, off = cp.counting_multiplicities_from_u(u, w, n)
+    again = cp.counting_multiplicities_from_u(u, w, n)
+    assert torch.equal(m, again[0]) and torch.equal(off, again[1])
+    model = chain_counts(w.cpu().numpy(), u.cpu().numpy(), n)
+    np.testing.assert_array_equal(m.cpu().numpy(), model[0])
+    np.testing.assert_array_equal(off.cpu().numpy(), model[1])
+    m2, off2 = m.reshape(-1, n), off.reshape(-1, n)
+    assert torch.equal(m2.sum(dim=1, dtype=torch.int64),
+                       torch.full((m2.shape[0],), n, device=_card))
+    assert int(m2.min()) >= 0
+    assert torch.equal(off2, torch.cumsum(m2, dim=1, dtype=torch.int32) - m2)
+    upper = (off2 + m2).cpu().numpy()
+    for t, (row, ut) in enumerate(zip(w.reshape(-1, n).cpu().numpy(),
+                                      u.reshape(-1).cpu().numpy())):
+        assert np.abs(upper[t] - float64_ceilings(row, ut, n)).max() <= 1
+    if len(shape) == 2:
+        alone = cp.counting_multiplicities_from_u(u[1], w[1].contiguous(), n)
+        assert torch.equal(alone[0], m[1]) and torch.equal(alone[1], off[1])
+
+
+@pytest.mark.parametrize("n", [2 ** 22, 131_072])
+def test_counting_pass_keeps_the_last_slot_for_offsets_near_one(_card, n):
+    """u = 1 − 2⁻²⁴ on the card, zeros at the end and one in the middle:
+    the last slot goes to the last particle of positive weight and no
+    zero weight gets a slot."""
+    w = torch.ones((n,), device=_card)
+    w[-100:] = 0.0
+    w[n // 2] = 0.0
+    w = w / w.sum()
+    u = torch.full((), 1.0 - 2.0 ** -24, device=_card)
+    m, _ = cp.counting_multiplicities_from_u(u, w, n)
+    assert int(m.sum()) == n and int(m[w == 0].sum()) == 0
+    assert int(m[n - 101]) >= 1
+
+
+def test_counting_pass_refuses_what_the_chain_does_not_take(_card):
+    w = torch.rand((3, 64), device=_card)
+    with pytest.raises(ValueError):
+        cp.counting_multiplicities_from_u(0.5, w.double(), 64)
+    with pytest.raises(ValueError):
+        cp.counting_multiplicities_from_u(0.5, w.t(), 3)
+    with pytest.raises(ValueError):
+        cp.counting_multiplicities_from_u(torch.rand(2, device=_card), w, 64)
+    with pytest.raises(ValueError):
+        cp.counting_multiplicities_from_u(0.5, w, 2 ** 24 + 1)
+    with pytest.raises(ValueError):
+        cp.counting_multiplicities_from_u(0.5, w[None], 64)
+
+
+def test_liu_west_resample_runs_one_counting_chain_and_no_cummax(_card):
+    """One Liu-West resample at 2²²: one counting chain, one K3 fill, and
+    no ``torch.cummax`` (nor any other scan of PyTorch's) on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from qinfer_tpu_torch import SimplePrecessionModel
+    from qinfer_tpu_torch.resamplers import LiuWestResampler
+
+    n = 2 ** 22
+    g = _gen(17)
+    x = torch.rand((n, 1), generator=g, device=_card)
+    w = torch.exp(-((x[:, 0] - 0.7) / 0.01) ** 2)
+    w = w / w.sum()
+    rs, model = LiuWestResampler(), SimplePrecessionModel()
+    rs(model, g, w, x)
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then sees no device event
+        before = (cp.counting_multiplicities_from_u.launches,
+                  sr.streaming_resample_locations.launches)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            rs(model, g, w, x)
+            torch.cuda.synchronize()
+        kernels = [e.key for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+    assert (cp.counting_multiplicities_from_u.launches,
+            sr.streaming_resample_locations.launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    assert any("counting_pass_counts" in k for k in kernels), kernels
+    assert not any("cummax" in k or "scan" in k for k in kernels), kernels
 
 
 def test_k3_point_mass_and_two_survivors(_card):
@@ -897,9 +1022,10 @@ def test_checkpoint_resume_on_the_card_is_bit_identical(_card, tmp_path):
 
 @pytest.mark.parametrize("n", [1, 4096, 131_072, 10_000_000])
 def test_single_row_cumsum_is_reproducible_on_the_card(_card, n):
-    """``utils.cumsum_last`` on one row (the counting pass's and PGH's
-    draw): the same bits on five calls, within 1e-6 of the total of the
-    float64 cumsum; on (T, n) rows it is ``torch.cumsum`` to the bit."""
+    """``utils.cumsum_last`` on one row (PGH's draws on the card, and
+    the counting pass's plain version): the same bits on five calls,
+    within 1e-6 of the total of the float64 cumsum; on (T, n) rows it is
+    ``torch.cumsum`` to the bit."""
     from qinfer_tpu_torch.utils import cumsum_last
 
     w = torch.rand((n,), generator=_gen(n), device=_card)

@@ -13,7 +13,8 @@ import torch
 
 import qinfer_tpu_torch as qt
 from qinfer_tpu_torch import kernels
-from qinfer_tpu_torch.ops import jacobi, precession, streaming_resample
+from qinfer_tpu_torch.ops import (counting_pass, jacobi, precession,
+                                  streaming_resample)
 
 PKG = Path(qt.__file__).resolve().parent
 ROOT = PKG.parent
@@ -66,7 +67,8 @@ def test_launch_counters_stay_zero_on_cpu():
     wrappers = (precession.fused_precession_update, precession.precession_pr0,
                 streaming_resample.streaming_resample_locations,
                 jacobi.jacobi_project_lanes,
-                jacobi.jacobi_project_lanes_looped, jacobi.jacobi_eigh_lanes)
+                jacobi.jacobi_project_lanes_looped, jacobi.jacobi_eigh_lanes,
+                counting_pass.counting_multiplicities_from_u)
     for fn in wrappers:
         fn.launches = 0
     _, extra = qt.perf_test(qt.AcceleratedPrecessionModel(), 2048,
@@ -77,14 +79,14 @@ def test_launch_counters_stay_zero_on_cpu():
     cfg = tb.make_config("process", torch.device("cpu"), 1)
     run = tb.timed_run(cfg, 300, 40, 0, torch.device("cpu"))
     assert run["projections"] > 0
-    assert [fn.launches for fn in wrappers] == [0] * 6
+    assert [fn.launches for fn in wrappers] == [0] * 7
     assert kernels.library.cache_info().currsize == 0
 
 
 def test_cuda_sources_carry_their_notes_and_the_accurate_cosine():
     sources = {p.name: p.read_text() for p in kernels.CSRC_DIR.glob("*.cu")}
     assert set(sources) == {"precession.cu", "streaming_resample.cu",
-                            "jacobi.cu"}
+                            "jacobi.cu", "counting_pass.cu"}
     for fn in ("jacobi_project_lanes", "jacobi_project_lanes_looped",
                "jacobi_eigh_lanes"):
         assert f"qinfer_tpu/ops/jacobi.py::{fn}" in sources["jacobi.cu"]
@@ -96,6 +98,13 @@ def test_cuda_sources_carry_their_notes_and_the_accurate_cosine():
         sources["precession.cu"])
     assert ("qinfer_tpu/ops/streaming_resample.py::"
             "streaming_resample_locations") in sources["streaming_resample.cu"]
+    # the counting pass replaces no Pallas kernel, names what it replaces
+    # and rounds the plain version's ops one by one
+    counting = sources["counting_pass.cu"]
+    assert "Replaces no Pallas kernel" in counting
+    assert "qinfer_tpu/resamplers.py:164" in counting
+    assert "__fdiv_rn" in counting and "__fmul_rn" in counting
+    assert "streaming_resample_kernel" not in counting
     assert "__cosf(" not in sources["precession.cu"]
     assert "cosf(" in sources["precession.cu"]
     assert not any("fast_math" in f or "fast-math" in f
