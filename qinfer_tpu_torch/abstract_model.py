@@ -24,6 +24,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -55,6 +57,33 @@ def keyed_kwargs(model, generator):
                                          False):
         return {"generator": generator}
     return {}
+
+
+_design_table = False
+
+
+@contextlib.contextmanager
+def design_tables():
+    """Inside the block, a likelihood called builds a design scorer's table
+    (``smc._likelihood_grid``) and not an update's weights. A model whose
+    float32 likelihood rounds away what the scores' entropy terms resolve
+    computes its table more exactly there
+    (:meth:`~qinfer_tpu_torch.test_models.SimplePrecessionModel.likelihood`);
+    the update keeps the JAX package's arithmetic. A wrapper or subclass
+    that calls the model's likelihood inside the block gets the same
+    table."""
+    global _design_table
+    outer, _design_table = _design_table, True
+    try:
+        yield
+    finally:
+        _design_table = outer
+
+
+def building_design_table():
+    """Whether a likelihood called now builds a design table
+    (:func:`design_tables`)."""
+    return _design_table
 
 
 def per_particle(generator, fn, *tensors, dim=0, out_dim=None):

@@ -46,6 +46,10 @@ A mesh lies in one of two layouts:
   included); under NCCL, whose calls only queue work on the card, CUDA
   events on the current stream around each call, summed when the
   seconds are read (one wait for the card then, none a collective).
+  While a recording of :mod:`qinfer_tpu_torch.tracing` is on, each
+  counted collective is also a span of its kind: ``mesh.all_gather``
+  (``psum`` and ``pmax`` too), ``mesh.ppermute`` or ``mesh.barrier``,
+  whose parent names the layer that paid for it.
 
 In either layout the engine draws its per-particle values (a keyed
 likelihood's noise, a time-dependent model's step, the moves' proposals
@@ -66,6 +70,7 @@ import time
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from ..config import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["ParticleMesh", "MeshSharding", "Reducer", "LOCAL",
@@ -294,13 +299,14 @@ class ParticleMesh:
         del self._pending[:k]
 
     @contextlib.contextmanager
-    def _collective(self):
+    def _collective(self, span):
         """Count one collective of the group and its time: under NCCL a
         pair of CUDA events on the current stream around it, summed by
         ``collective_seconds`` (the pairs the card has passed are summed
         here first, with no wait, so few stay pending); else the host's
         wall time, staging included, after the card's queued work (not
-        counted)."""
+        counted). The span ``span`` (``mesh.<kind>``, :mod:`..tracing`)
+        covers what the counter times, one a collective counted."""
         if self._events:
             done = 0
             while (done < len(self._pending)
@@ -311,7 +317,8 @@ class ParticleMesh:
             start = torch.cuda.Event(enable_timing=True)
             start.record(stream)
             try:
-                yield
+                with tracing.span(span):
+                    yield
             finally:
                 end = torch.cuda.Event(enable_timing=True)
                 end.record(stream)
@@ -322,7 +329,8 @@ class ParticleMesh:
             torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
         try:
-            yield
+            with tracing.span(span):
+                yield
         finally:
             self._seconds += time.perf_counter() - t0
             self.collective_calls += 1
@@ -342,7 +350,7 @@ class ParticleMesh:
         axis: ``(L, ...)`` → ``(D, ...)`` (what every shard receives)."""
         if not self.spans_processes:
             return stacked
-        with self._collective():
+        with self._collective("mesh.all_gather"):
             local = self._out(stacked[0])
             parts = [torch.empty_like(local) for _ in range(self._size)]
             dist.all_gather(parts, local)
@@ -371,7 +379,7 @@ class ParticleMesh:
             return torch.roll(stacked, shift, dims=0)
         if shift == 0:
             return stacked
-        with self._collective():
+        with self._collective("mesh.ppermute"):
             send = self._out(stacked[0])
             recv = torch.empty_like(send)
             D, r = self._size, self.rank
@@ -385,7 +393,7 @@ class ParticleMesh:
         """Wait until every rank has reached this point (a no-op in one
         process)."""
         if self.spans_processes:
-            with self._collective():
+            with self._collective("mesh.barrier"):
                 if self.backend == "nccl":
                     dist.barrier(device_ids=[self.device.index])
                 else:

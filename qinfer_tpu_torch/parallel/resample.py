@@ -38,6 +38,7 @@ import math
 
 import torch
 
+from .. import tracing
 from ..config import EPS
 from ..resamplers import (Resampler, counting_locations_batch_from_u,
                           propose_valid, shrinkage_factor)
@@ -175,7 +176,8 @@ def two_level_fill(mesh, u1, u2, w, x, exchange="ring"):
     (:func:`exchange_blocks`), then each local shard's counting fill at
     its own ``u2[s]`` ((L,)), ONE K3 launch over the local shards' rows.
     (L, n/D, d)."""
-    recv_w, recv_x = exchange_blocks(mesh, u1, w, x, exchange)
+    with tracing.span("resample.exchange"):
+        recv_w, recv_x = exchange_blocks(mesh, u1, w, x, exchange)
     return counting_locations_batch_from_u(u2, recv_w, recv_x)[0]
 
 
@@ -195,6 +197,14 @@ class DistributedLiuWestResampler(Resampler):
     across processes, an all-reduce of the ranks' verdicts, so every rank
     runs the same rounds) or ``maxiter`` rounds have passed; the
     canonicalization always runs, and the output weights are 1/n.
+
+    While a recording of :mod:`qinfer_tpu_torch.tracing` is on, a call is
+    the one-card resampler's span tree: ``resample``, with
+    ``resample.ancestors`` (the fill, ``resample.exchange`` around the
+    block exchange inside it), ``resample.proposal`` (the proposals and
+    the validity rounds) and ``resample.project``. The weights' global
+    total and the moments, which the fill and the proposals both read, and
+    the fallback count's sum are ``resample``'s own time.
 
     :param mesh: the :class:`~qinfer_tpu_torch.parallel.ParticleMesh`.
     :param str axis_name: its axis (must be the mesh's).
@@ -262,23 +272,28 @@ class DistributedLiuWestResampler(Resampler):
         mesh = self.mesh
         d = particle_locations.shape[1]
         dev = particle_locations.device
-        u1, u2, w, x, gens = self.fill_inputs(generator, particle_weights,
-                                              particle_locations)
-        # global moments from per-shard partials
-        mu = mesh.psum(torch.bmm(w[:, None, :], x)[:, 0, :])
-        xc = x - mu
-        cov = mesh.psum(torch.bmm((xc * w[..., None]).mT, xc))
-        cov = cov + self.zero_cov_comp * torch.eye(d, dtype=cov.dtype,
-                                                   device=dev)
-        S_T = (shrinkage_factor(cov) * self.h).mT
-
-        x_anc = two_level_fill(mesh, u1, u2, w, x, self.exchange)
-        centers = self.a * x_anc + (1.0 - self.a) * mu
-        new_x, n_fallback, _ = propose_valid(
-            model, gens, centers, S_T, x_anc, self.maxiter,
-            all_valid=reducer_of(mesh.particle_sharding).all)
-        new_x = model.canonicalize(mesh.unshard(new_x))
-        n = mesh.n_devices * x.shape[1]
-        new_w = torch.full((new_x.shape[0],), 1.0 / n,
-                           dtype=particle_weights.dtype, device=dev)
-        return new_w, new_x, mesh.psum(n_fallback).to(torch.int32)
+        with tracing.span("resample"):
+            u1, u2, w, x, gens = self.fill_inputs(
+                generator, particle_weights, particle_locations)
+            # global moments from per-shard partials, and the Cholesky
+            # verdict's wait, ahead of the fill: the proposals' launches
+            # then queue behind the fill on the card
+            mu = mesh.psum(torch.bmm(w[:, None, :], x)[:, 0, :])
+            xc = x - mu
+            cov = mesh.psum(torch.bmm((xc * w[..., None]).mT, xc))
+            cov = cov + self.zero_cov_comp * torch.eye(d, dtype=cov.dtype,
+                                                       device=dev)
+            S_T = (shrinkage_factor(cov) * self.h).mT
+            with tracing.span("resample.ancestors"):
+                x_anc = two_level_fill(mesh, u1, u2, w, x, self.exchange)
+            with tracing.span("resample.proposal"):
+                centers = self.a * x_anc + (1.0 - self.a) * mu
+                new_x, n_fallback, _ = propose_valid(
+                    model, gens, centers, S_T, x_anc, self.maxiter,
+                    all_valid=reducer_of(mesh.particle_sharding).all)
+            with tracing.span("resample.project"):
+                new_x = model.canonicalize(mesh.unshard(new_x))
+            n = mesh.n_devices * x.shape[1]
+            new_w = torch.full((new_x.shape[0],), 1.0 / n,
+                               dtype=particle_weights.dtype, device=dev)
+            return new_w, new_x, mesh.psum(n_fallback).to(torch.int32)

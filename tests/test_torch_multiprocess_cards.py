@@ -200,12 +200,12 @@ def test_nccl_timer_folds_the_collectives_the_card_has_passed(monkeypatch):
     mesh = ParticleMesh(["cpu"])
     mesh._events = True
     for _ in range(100):
-        with mesh._collective():
+        with mesh._collective("mesh.all_gather"):
             pass
         assert len(mesh._pending) == 1
     _Event.done = False  # the card falls behind: the pairs wait
     for k in range(5):
-        with mesh._collective():
+        with mesh._collective("mesh.all_gather"):
             pass
     assert len(mesh._pending) == 6
     assert mesh.collective_seconds == pytest.approx(0.105)
